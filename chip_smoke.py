@@ -6,16 +6,26 @@ NVIDIA Hopper card.
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
 
 Phases:
- 1. setup: card name and power limit, TF32 off, build the CUDA kernels;
+ 1. setup: card name and power limit, TF32 off, build the CUDA kernels
+    (``flash_fwd`` and ``flash_bwd``, one ``nvcc`` each, in parallel);
  2. each kernel against its plain PyTorch version on the card, at the
-    main path's shapes, with times, bounds and the library yardstick;
+    shapes of the serving and the training path, with times, bounds and
+    the library yardstick;
  3. the t2v-14B DiT at full width (depth cut) with the kernel against the
     plain attention;
- 4. the main path: ``WanT2V`` for t2v-14B at full width and depth
-    (random weights) answering two requests, with the kernel's launches
-    counted;
+ 4. the serving path: ``WanT2V`` for t2v-14B at full width and depth
+    (random weights) answering two requests, with the forward kernel's
+    launches counted;
  5. (only when asked: ``--phases 5``) a torch.profiler breakdown of one
-    full-depth DiT forward at the first request's shape.
+    full-depth DiT forward at the first request's shape;
+ 6. the training path: (a) the gradients of a 2-block t2v-1.3B at full
+    width and 32,760 tokens through the kernels against the plain
+    attention; (b) ``cli.finetune`` taking 3 full fine-tune steps of
+    t2v-1.3B at full width and depth (a random checkpoint exported and
+    loaded back, a synthetic latent dataset) with the stats-forward,
+    dKV and dQ launches counted, and its final checkpoint read back;
+ 7. (only when asked: ``--phases 7``) a torch.profiler breakdown of one
+    full-depth t2v-1.3B fine-tune step at 32,760 tokens.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -27,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -34,6 +45,7 @@ import time
 
 import numpy as np
 
+DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -61,6 +73,28 @@ FLASH_CASES = [
 # by O(1) of it.
 FLASH_REL_TOL = 1e-2
 
+# Training shapes at t2v-1.3B (12 heads x 128): 480*832 at 21 latent
+# frames -> 32,760 tokens, the finetune CLI's default; the 512-token text
+# cross-attention; and B=2 at 7,800 tokens with a key mask.
+TRAIN_HEADS = 12
+TRAIN_CASES = [
+    # name, kind, B, Lq, Lk, k_lens as fractions of Lk (None = no mask)
+    ("g_stats_self_B1_L32760", "stats", 1, 32760, 32760, None),
+    ("h_bwd_self_B1_L32760", "bwd", 1, 32760, 32760, None),
+    ("i_bwd_cross_B1_Lq32760_Lk512", "bwd", 1, 32760, 512, None),
+    ("j_bwd_klens_B2_L7800", "bwd", 2, 7800, 7800, (1.0, 0.6)),
+]
+# Stats forward: out as FLASH_REL_TOL; m and l are fp32 sums of the same
+# bf16 products in another order (~1e-6 relative), held to the same bound.
+# Backward (dq, dk, dv) against the plain twin: the kernels round P and
+# dS to bf16 (8 bits) to feed the tensor cores where the twin keeps fp32,
+# and both write bf16. The rounding errors are independent from term to
+# term and mostly cancel over the Lq or Lk terms of each sum, so each
+# gradient stays within a few bf16 steps (2^-8 = 3.9e-3) of its largest
+# magnitude; 2e-2 bounds that, and a wrong fragment, mask or scale is off
+# by O(1).
+GRAD_REL_TOL = 2e-2
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -85,16 +119,44 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _bound(flops, nbytes):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def flash_bound(b, lq, lk_eff, n=HEADS, d=HEAD_DIM):
     """(bound ms, bound_by): tensor-core flops 4·N·Lq·D per attended key
     against the bytes of q and out once and of k, v once per attended
     key, each over the card's peak."""
     keys = sum(lk_eff)
-    flops = 4.0 * n * lq * d * keys
-    nbytes = 2.0 * n * d * (2 * b * lq + 2 * keys)
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(4.0 * n * lq * d * keys,
+                  2.0 * n * d * (2 * b * lq + 2 * keys))
+
+
+def train_bounds(b, lq, lk, lk_eff, n=TRAIN_HEADS, d=HEAD_DIM):
+    """(bound ms, bound_by) of the stats forward, the dKV and the dQ
+    kernel. Flops per attended key and query row, times N·D: 4 for the
+    forward (q·kᵀ, P·v), 8 for dKV (S, dP, dV, dK) and 6 for dQ (S, dP,
+    dQ). Bytes: every bf16 input read once (masked keys not at all), the
+    fp32 row stats (m, l; and Δ in the backward) and the outputs written
+    once."""
+    keys = sum(lk_eff)
+    rows = b * lq * n * d * 2          # one bf16 [B, Lq, N, D] tensor
+    kv = keys * n * d * 2              # one bf16 k or v, attended keys
+    stats = b * n * lq * 4             # one fp32 [B, N, Lq] row stat
+    grads_kv = 2 * b * lk * n * d * 2  # dk and dv, every key written
+    fwd = _bound(4.0 * n * lq * d * keys, 2 * rows + 2 * kv + 2 * stats)
+    dkv = _bound(8.0 * n * lq * d * keys,
+                 2 * rows + 2 * kv + 3 * stats + grads_kv)
+    dq = _bound(6.0 * n * lq * d * keys, 3 * rows + 2 * kv + 3 * stats)
+    return fwd, dkv, dq
+
+
+def rel_err(got, want):
+    """(max |got − want|, that over max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
 # ---------------------------------------------------------------- phases
@@ -117,7 +179,7 @@ def phase_setup(report):
     from moviigen_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    secs = kernels.build(["flash_fwd"])
+    secs = kernels.build(["flash_fwd", "flash_bwd"])
     log(f"phase 1: built kernels {secs} in {time.perf_counter() - t0:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
@@ -132,18 +194,18 @@ def phase_kernels(report):
 
     cases = []
     for name, b, lq, lk, fracs in FLASH_CASES:
-        gen = torch.Generator(device="cuda").manual_seed(len(cases) + 1)
+        gen = torch.Generator(device=DEVICE).manual_seed(len(cases) + 1)
         q = torch.randn(b, lq, HEADS, HEAD_DIM, generator=gen,
-                        device="cuda", dtype=torch.bfloat16)
+                        device=DEVICE, dtype=torch.bfloat16)
         k = torch.randn(b, lk, HEADS, HEAD_DIM, generator=gen,
-                        device="cuda", dtype=torch.bfloat16)
+                        device=DEVICE, dtype=torch.bfloat16)
         v = torch.randn(b, lk, HEADS, HEAD_DIM, generator=gen,
-                        device="cuda", dtype=torch.bfloat16)
+                        device=DEVICE, dtype=torch.bfloat16)
         k_lens = None
         lk_eff = [lk] * b
         if fracs is not None:
             lk_eff = [int(f * lk) for f in fracs]
-            k_lens = torch.tensor(lk_eff, dtype=torch.int32, device="cuda")
+            k_lens = torch.tensor(lk_eff, dtype=torch.int32, device=DEVICE)
         got = fa.flash_attention_cuda(q, k, v, k_lens)
         want = fa.flash_attention_plain(q, k, v, k_lens)
         torch.cuda.synchronize()
@@ -159,7 +221,7 @@ def phase_kernels(report):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if k_lens is not None:
-            mask = (torch.arange(lk, device="cuda")[None, :]
+            mask = (torch.arange(lk, device=DEVICE)[None, :]
                     < k_lens[:, None])[:, None, None, :]
         lib_ms = cuda_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(qt, kt, vt,
@@ -180,12 +242,114 @@ def phase_kernels(report):
         del q, k, v, got, want, err
         torch.cuda.empty_cache()
     report["flash_cases"] = cases
+    train_kernel_cases(report)
+
+
+def _check(name, what, got, want, tol):
+    """(max abs err, relative err) of a kernel's output against its plain
+    twin's; raises if non-finite or past ``tol``."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name}: non-finite kernel {what}")
+    max_abs, rel = rel_err(got, want)
+    if rel > tol:
+        raise RuntimeError(f"{name}: kernel vs plain {what} max abs err "
+                           f"{max_abs:.3e} is {rel:.3e} of max|plain| > {tol}")
+    return max_abs, rel
+
+
+def train_kernel_cases(report):
+    """The stats forward and the two backward kernels at the training
+    shapes, each against its plain twin on the same inputs; SDPA's
+    forward and backward as the library yardstick."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, (name, kind, b, lq, lk, fracs) in enumerate(TRAIN_CASES):
+        gen = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        q, k, v = (torch.randn(b, l, TRAIN_HEADS, HEAD_DIM, generator=gen,
+                               device=DEVICE, dtype=torch.bfloat16)
+                   for l in (lq, lk, lk))
+        lk_eff, k_lens = [lk] * b, None
+        if fracs is not None:
+            lk_eff = [int(f * lk) for f in fracs]
+            k_lens = torch.tensor(lk_eff, dtype=torch.int32, device=DEVICE)
+        (fwd_b, fwd_by), (dkv_b, dkv_by), (dq_b, dq_by) = train_bounds(
+            b, lq, lk, lk_eff)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = None
+        if k_lens is not None:
+            mask = (torch.arange(lk, device=DEVICE)[None, :]
+                    < k_lens[:, None])[:, None, None, :]
+        row = dict(case=name, B=b, Lq=lq, Lk=lk, N=TRAIN_HEADS,
+                   k_lens=lk_eff)
+        want = fa.flash_attention_stats_plain(q, k, v, k_lens)
+        if kind == "stats":
+            got = fa.flash_attention_stats_cuda(q, k, v, k_lens)
+            torch.cuda.synchronize()
+            errs = [_check(name, what, g, w, FLASH_REL_TOL)
+                    for what, g, w in zip(("out", "m", "l"), got, want)]
+            with torch.no_grad():
+                lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+            row.update(
+                kernel="flash_fwd_stats",
+                max_abs_err=max(e[0] for e in errs),
+                rel_err={w: e[1] for w, e in zip(("out", "m", "l"), errs)},
+                ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(
+                    q, k, v, k_lens)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(
+                    q, k, v, k_lens), iters=3, warmup=1),
+                library_ms=lib_ms, library="SDPA forward",
+                bound_ms=fwd_b, bound_by=fwd_by)
+        else:
+            out, m, l = want
+            do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                             dtype=torch.bfloat16)
+            ops = fa.bwd_operands(q, k, v, k_lens, out, m, l, do)
+            dk, dv = fa.flash_bwd_dkv_cuda(ops)
+            dq = fa.flash_bwd_dq_cuda(ops)
+            torch.cuda.synchronize()
+            wdq, wdk, wdv = fa.flash_bwd_plain(q, k, v, k_lens, out, m, l, do)
+            errs = {what: _check(name, what, g, w, GRAD_REL_TOL)
+                    for what, g, w in (("dq", dq, wdq), ("dk", dk, wdk),
+                                       ("dv", dv, wdv))}
+            if k_lens is not None:  # keys past k_lens: exactly zero
+                for what, g in (("dk", dk), ("dv", dv)):
+                    if bool(g[1, lk_eff[1]:].any()):
+                        raise RuntimeError(f"{name}: {what} non-zero past "
+                                           "k_lens")
+            plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(
+                q, k, v, k_lens, out, m, l, do), iters=3, warmup=1)
+            ot = sdpa(qt, kt, vt, attn_mask=mask)
+            dot = do.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True))
+            row.update(
+                rel_err={w: e[1] for w, e in errs.items()},
+                max_abs_err={w: e[0] for w, e in errs.items()},
+                dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
+                dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(ops)),
+                plain_ms=plain_ms,
+                library_ms=lib_ms, library="SDPA backward (dq, dk, dv)",
+                dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
+                dq_bound_ms=dq_b, dq_bound_by=dq_by)
+            del ops, dk, dv, dq, wdq, wdk, wdv, ot, do
+        log("phase 2: train " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+    report["train_cases"] = rows
 
 
 def kernels_line(report):
     cases = report["flash_cases"]
     main = cases[0]
-    return {"kernels": [{
+    entries = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
@@ -198,7 +362,48 @@ def kernels_line(report):
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "cases": cases,
-    }]}
+    }]
+    train = report.get("train_cases")
+    if not train:
+        return {"kernels": entries}
+    counts = report.get("train_launches", {})
+    stats = [c for c in train if "kernel" in c]
+    bwd = [c for c in train if "kernel" not in c]
+    s, bmain = stats[0], bwd[0]  # self-attention at 32,760 tokens
+    entries.append({
+        "name": "flash_fwd_stats",
+        "route": "cuda",
+        "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "moviigen_tpu/ops/flash_attention.py:105",
+        "launches": counts.get("stats_launches", 0),
+        "max_abs_err": max(c["max_abs_err"] for c in stats),
+        "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+        "library_ms": s["library_ms"], "cases": stats,
+    })
+    for name, line, key, grads in (
+            ("flash_bwd_dkv", 275, "dkv", ("dk", "dv")),
+            ("flash_bwd_dq", 326, "dq", ("dq",))):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "moviigen_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"moviigen_tpu/ops/flash_attention.py:{line}",
+            "launches": counts.get(f"{key}_launches", 0),
+            "max_abs_err": max(c["max_abs_err"][g] for c in bwd
+                               for g in grads),
+            "ms": bmain[f"{key}_ms"], "plain_ms": bmain["plain_ms"],
+            "bound_ms": bmain[f"{key}_bound_ms"],
+            "bound_by": bmain[f"{key}_bound_by"],
+            "library_ms": bmain["library_ms"],
+            "cases": [{"case": c["case"], "ms": c[f"{key}_ms"],
+                       "bound_ms": c[f"{key}_bound_ms"],
+                       "plain_ms": c["plain_ms"],
+                       "library_ms": c["library_ms"],
+                       "rel_err": {g: c["rel_err"][g] for g in grads}}
+                      for c in bwd],
+        })
+    return {"kernels": entries}
 
 
 # DiT kernel path vs plain path (phase 3), bf16 compute, 2 blocks: the
@@ -227,17 +432,17 @@ def phase_dit(report):
     from moviigen_tpu_torch.ops.rope import rope_3d_freqs
 
     cfg = WAN_CONFIGS["t2v-14B"].model.replace(num_layers=DIT_SMOKE_LAYERS)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model = WanModel(cfg, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE)
     model.init_weights(gen)
     with torch.no_grad():
         model.head.weight.normal_(0.0, 0.02, generator=gen)  # live head
         x = torch.randn(2, cfg.in_dim, 5, 60, 104, generator=gen,
-                        device="cuda")
-        t = torch.full((2,), 500.0, device="cuda")
+                        device=DEVICE)
+        t = torch.full((2,), 500.0, device=DEVICE)
         ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
-                          device="cuda")
-        rope = rope_3d_freqs((5, 30, 52), cfg.head_dim, device="cuda")
+                          device=DEVICE)
+        rope = rope_3d_freqs((5, 30, 52), cfg.head_dim, device=DEVICE)
         outs = {}
         for backend in ("auto", "plain"):
             torch.cuda.synchronize()
@@ -278,7 +483,7 @@ def phase_main_path(report):
     config = WAN_CONFIGS["t2v-14B"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pipe = WanT2V(config, device="cuda")
+    pipe = WanT2V(config, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     log(f"phase 4: WanT2V t2v-14B init {init_s:.1f} s, "
@@ -293,13 +498,16 @@ def phase_main_path(report):
         forwards = 1 if cfg_batched(config.model.dim, seq_len) else 2
         expected = steps * forwards * 2 * config.model.num_layers
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
+        fa.reset_launch_counts()
         t0 = time.perf_counter()
         video = pipe.generate(PROMPT, size=(832, 480), frame_num=frames,
                               sampling_steps=steps, sample_solver=solver,
                               seed=42)
         total_s = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
+        counts = fa.launch_counts()
+        launches = counts.pop("launches")
+        if any(counts.values()):  # serving runs under no-grad
+            raise RuntimeError(f"{name}: training kernels launched {counts}")
         total_launches += launches
         if video.shape != (3, frames, 480, 832):
             raise RuntimeError(f"{name}: video shape {video.shape}")
@@ -331,8 +539,14 @@ def phase_main_path(report):
 
 
 def _kernel_category(name: str) -> str:
-    if "flash_fwd" in name:
-        return "flash_fwd (this port's kernel)"
+    if "flash_bwd_dkv" in name:
+        return "flash dKV (this port's kernel)"
+    if "flash_bwd_dq" in name:
+        return "flash dQ (this port's kernel)"
+    if "flash_fwd" in name:  # the stats variant is the template's <true>
+        stats = "<true>" in name or "ILb1E" in name
+        return (f"flash forward{' stats' if stats else ''} "
+                "(this port's kernel)")
     low = name.lower()
     if any(tag in low for tag in ("gemm", "xmma", "cutlass", "nvjet",
                                   "matmul")):
@@ -342,46 +556,26 @@ def _kernel_category(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
-def phase_profile(report):
-    """One DiT forward of the full t2v-14B (40 blocks) at the first
-    request's shape (7,800 tokens, B=2 batched CFG) under torch.profiler:
-    device time by kernel and by category, and the device's idle share
-    against the host clock. Not in the default phases."""
+def profile(fn, label, phase):
+    """Run ``fn`` once under torch.profiler (after one warm-up call) and
+    once more without it: device time by kernel and by category, and the
+    device's idle share against the host clock."""
     import torch
     from torch.autograd import DeviceType
 
-    from moviigen_tpu_torch.configs import WAN_CONFIGS
-    from moviigen_tpu_torch.models.wan_model import WanModel
-    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
-
-    cfg = WAN_CONFIGS["t2v-14B"].model
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model = WanModel(cfg, dtype=torch.bfloat16, device="cuda")
-    model.init_weights(gen)
-    with torch.no_grad():
-        x = torch.randn(2, cfg.in_dim, 5, 60, 104, generator=gen,
-                        device="cuda")
-        t = torch.full((2,), 500.0, device="cuda")
-        ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
-                          device="cuda")
-        rope = rope_3d_freqs((5, 30, 52), cfg.head_dim, device="cuda")
-
-        def fwd():
-            return model(x, t, ctx, rope, seq_len=7800)
-
-        fwd()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fwd()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fwd()
+        fn()
         torch.cuda.synchronize()
-        wall_ms_unprofiled = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms_unprofiled = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -398,27 +592,315 @@ def phase_profile(report):
         cats[cat] = cats.get(cat, 0.0) + ms
         launches[cat] = launches.get(cat, 0) + count
     summary = dict(
-        shape="t2v-14B 40 blocks, 7,800 tokens, B=2, bf16",
-        wall_ms=wall_ms, wall_ms_unprofiled=wall_ms_unprofiled,
+        shape=label, wall_ms=wall_ms, wall_ms_unprofiled=wall_ms_unprofiled,
         device_ms=device_ms,
         idle_share=(1.0 - device_ms / wall_ms) if rows else None,
         categories_ms=cats, categories_launches=launches)
-    log("phase 5: profile " + json.dumps(summary))
-    for name, ms, count in rows:
+    log(f"phase {phase}: profile " + json.dumps(summary))
+    for name, ms, count in rows[:40]:
         log(f"  {ms:10.3f} ms  x{count:<5d} {name[:110]}")
-    report["profile"] = summary
+    return summary
+
+
+def phase_profile(report):
+    """One DiT forward of the full t2v-14B (40 blocks) at the first
+    request's shape (7,800 tokens, B=2 batched CFG) under torch.profiler.
+    Not in the default phases."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+
+    cfg = WAN_CONFIGS["t2v-14B"].model
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE)
+    model.init_weights(gen)
+    with torch.no_grad():
+        x = torch.randn(2, cfg.in_dim, 5, 60, 104, generator=gen,
+                        device=DEVICE)
+        t = torch.full((2,), 500.0, device=DEVICE)
+        ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
+                          device=DEVICE)
+        rope = rope_3d_freqs((5, 30, 52), cfg.head_dim, device=DEVICE)
+        report["profile"] = profile(
+            lambda: model(x, t, ctx, rope, seq_len=7800),
+            "t2v-14B 40 blocks, 7,800 tokens, B=2, bf16", 5)
     del model
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- training
+
+# t2v-1.3B fine-tuning at the finetune CLI's defaults: 480*832, 81 frames
+# -> latents [16, 21, 60, 104] -> 21 x 30 x 52 = 32,760 tokens, B=1.
+TRAIN_TASK = "t2v-1.3B"
+TRAIN_LATENT = (16, 21, 60, 104)
+TRAIN_STEPS = 3
+GRAD_CHECK_LAYERS = 2
+PROMPT_LENS = (12, 40, 77, 512)  # tokens of the 4 synthetic prompts
+# Gradient of every parameter tensor, kernel path vs plain attention, both
+# bf16 compute (norm-relative): the two differ where attention rounds to
+# bf16 (the forward's output, as DIT_REL_TOL; the backward's P and dS,
+# as GRAD_REL_TOL) and every later bf16 product rounds that again; the
+# differences stay near 2^-8 of each gradient's norm. 3e-2 bounds that
+# with margin; a gradient cut from the graph is off by 1 (all of it).
+PARAM_GRAD_REL_TOL = 3e-2
+
+
+def _train_inputs(cfg, gen):
+    """A random fp32 DiT with a live head (the zero-initialised head
+    would make every block gradient exactly zero) and the rope tables of
+    the training grid."""
+    import torch
+
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+
+    model = WanModel(cfg, dtype=torch.float32, device=DEVICE)
+    model.init_weights(gen)
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.02, generator=gen)
+    _, f, h, w = TRAIN_LATENT
+    grid = (f // cfg.patch_size[0], h // cfg.patch_size[1],
+            w // cfg.patch_size[2])
+    return model, rope_3d_freqs(grid, cfg.head_dim, device=DEVICE)
+
+
+def phase_grad_check(report):
+    """(a) Gradients of a 2-block t2v-1.3B at full width and 32,760
+    tokens through the kernels (``FlashAttention``: stats forward, dKV,
+    dQ) against the plain attention, per parameter tensor."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    cfg = WAN_CONFIGS[TRAIN_TASK].model.replace(num_layers=GRAD_CHECK_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    model, rope = _train_inputs(cfg, gen)
+    x = torch.randn(1, *TRAIN_LATENT, generator=gen, device=DEVICE)
+    t = torch.full((1,), 500.0, device=DEVICE)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen,
+                      device=DEVICE)
+    ctx[:, PROMPT_LENS[2]:] = 0.0  # a zero-padded prompt
+    target = torch.randn(x.shape, generator=gen, device=DEVICE)
+    names, params = zip(*model.named_parameters())
+    sites = 2 * GRAD_CHECK_LAYERS  # self + cross attention per block
+    want_counts = {
+        "auto": dict(launches=0, stats_launches=sites, dkv_launches=sites,
+                     dq_launches=sites),
+        "plain": dict.fromkeys(fa.COUNTERS, 0)}
+    grads = {}
+    for backend in ("auto", "plain"):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = model(x, t, ctx, rope, attn_backend=backend)
+        loss = torch.mean(torch.square(pred - target))
+        grads[backend] = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        log(f"phase 6a: {GRAD_CHECK_LAYERS}-block t2v-1.3B, 32,760 tokens, "
+            f"attn={backend}: loss {loss.item():.6f}, forward+backward "
+            f"{time.perf_counter() - t0:.3f} s (first call), launches "
+            f"{counts}")
+        if counts != want_counts[backend]:
+            raise RuntimeError(f"grad check attn={backend}: launches "
+                               f"{counts}, expected {want_counts[backend]}")
+        del pred, loss
+    errs = {}
+    for name, g, w in zip(names, grads["auto"], grads["plain"]):
+        errs[name] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    qkv = [n for n in names
+           if re.search(r"\.(self|cross)_attn\.[qkv]\.weight$", n)]
+    zero = [n for n in qkv
+            if not bool(grads["auto"][names.index(n)].abs().max() > 0)]
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    row = dict(layers=GRAD_CHECK_LAYERS, tokens=32760,
+               tensors=len(errs), qkv_weights=len(qkv),
+               max_rel_err=worst[0][1], worst=dict(worst[:6]),
+               median_rel_err=statistics.median(errs.values()))
+    log("phase 6a: grad check " + json.dumps(row))
+    if len(qkv) != 6 * GRAD_CHECK_LAYERS or zero:
+        raise RuntimeError(f"grad check: q/k/v projection weights {qkv} "
+                           f"have all-zero gradients: {zero}")
+    bad = {n: e for n, e in errs.items() if not e <= PARAM_GRAD_REL_TOL}
+    if bad:
+        raise RuntimeError(f"grad check: kernel vs plain gradient past "
+                           f"{PARAM_GRAD_REL_TOL} (norm-relative): {bad}")
+    report["grad_check"] = row
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+def phase_trainer(report):
+    """(b) The training path as a user runs it: ``cli.finetune.main``
+    for t2v-1.3B at full width and depth, 3 steps at 32,760 tokens, from
+    a random checkpoint exported with the port's
+    ``export_wan_safetensors`` and a synthetic latent dataset; every
+    training kernel's launches counted; the final checkpoint read back
+    and deleted."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_convert import (
+        EXPORT_NAME, export_wan_safetensors, wan_params_to_state_dict)
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.training.checkpoint import OPT_FILE, PARAMS_FILE
+    from moviigen_tpu_torch.utils.safetensors import load_file
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt_dir, data_dir, out_dir = root / "ckpt", root / "data", root / "out"
+    for d in (ckpt_dir, data_dir / "latent", data_dir / "prompt_embed"):
+        d.mkdir(parents=True)
+    log(f"phase 6b: {shutil.disk_usage(root).free / 2**30:.1f} GiB free "
+        f"under {root}")
+    cfg = WAN_CONFIGS[TRAIN_TASK].model
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    model, _ = _train_inputs(cfg, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    export_wan_safetensors(str(ckpt_dir / EXPORT_NAME), model)
+    export_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    annos = []
+    for i, n in enumerate(PROMPT_LENS):
+        np.save(data_dir / "latent" / f"clip{i}.npy",
+                rng.standard_normal(TRAIN_LATENT, dtype=np.float32))
+        np.save(data_dir / "prompt_embed" / f"clip{i}.npy",
+                rng.standard_normal((n, cfg.text_dim), dtype=np.float32))
+        annos.append({"latent_path": f"clip{i}.npy",
+                      "prompt_embed_path": f"clip{i}.npy",
+                      "length": 81, "aspect_ratio_bin": 0})
+    data_json = data_dir / "videos2caption.json"
+    data_json.write_text(json.dumps(annos))
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    record = finetune.main([
+        "--task", TRAIN_TASK, "--device", DEVICE,
+        "--ckpt_dir", str(ckpt_dir),
+        "--data_json_path", str(data_json), "--num_latent_t", "21",
+        "--gradient_checkpointing", "--max_train_steps", str(TRAIN_STEPS),
+        "--checkpointing_steps", "1000", "--output_dir", str(out_dir),
+        "--seed", "0"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    report["train_launches"] = counts
+
+    # per step, each of the 2 x 30 attention sites: the stats forward in
+    # the forward and again in the per-block recompute, one dKV, one dQ
+    sites = 2 * cfg.num_layers
+    want = dict(launches=0, stats_launches=2 * sites * TRAIN_STEPS,
+                dkv_launches=sites * TRAIN_STEPS,
+                dq_launches=sites * TRAIN_STEPS)
+    losses, gnorms = record["loss"], record["grad_norm"]
+    log(f"phase 6b: finetune {TRAIN_STEPS} steps in {main_s:.1f} s: loss "
+        f"{losses}, grad_norm {gnorms}, step_s {record['step_s']}, "
+        f"launches {counts}")
+    if record["step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise RuntimeError(f"trainer stopped at step {record['step']}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+            and min(gnorms) > 0):
+        raise RuntimeError(f"trainer: loss {losses}, grad_norm {gnorms}")
+    if counts != want:
+        raise RuntimeError(f"trainer: launches {counts}, expected {want}")
+
+    model, opt = record["model"], record["optimizer"]
+    initial = load_file(str(ckpt_dir / EXPORT_NAME))
+    trained = wan_params_to_state_dict(model)
+    same = [k for k in initial if torch.equal(initial[k], trained[k])]
+    if same:
+        raise RuntimeError(f"trainer: parameters unchanged after "
+                           f"{TRAIN_STEPS} steps: {same[:8]}")
+    del initial, trained
+    path = pathlib.Path(record["checkpoint"])
+    ckpt_gib = sum(f.stat().st_size for f in path.iterdir()) / 2**30
+    t0 = time.perf_counter()
+    saved = load_file(str(path / PARAMS_FILE))
+    saved_opt = torch.load(path / OPT_FILE, map_location="cpu",
+                           weights_only=True)
+    read_s = time.perf_counter() - t0
+    for name, p in model.named_parameters():
+        if not torch.equal(saved[name], p.detach().cpu()):
+            raise RuntimeError(f"checkpoint: {name} read back differs")
+    state = opt.state_dict()
+    if (saved_opt["count"], saved_opt["mini_step"]) != (state["count"],
+                                                        state["mini_step"]):
+        raise RuntimeError("checkpoint: optimizer counts read back differ")
+    for key in ("m", "v"):
+        for a, b in zip(saved_opt[key], state[key]):
+            if not torch.equal(a, b.cpu()):
+                raise RuntimeError(f"checkpoint: optimizer {key} differs")
+    row = dict(task=TRAIN_TASK, layers=cfg.num_layers, tokens=32760,
+               params=n_params, steps=TRAIN_STEPS, step_s=record["step_s"],
+               step_s_median_2_3=statistics.median(record["step_s"][1:]),
+               loss=losses, grad_norm=gnorms, peak_gib=peak_gib,
+               checkpoint_gib=ckpt_gib,
+               checkpoint_save_s=record["checkpoint_s"],
+               checkpoint_read_s=read_s, export_s=export_s,
+               launches=counts, expected_launches=want)
+    log("phase 6b: trainer " + json.dumps(row))
+    report["trainer"] = row
+    del record, model, opt, saved, saved_opt
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_train(report):
+    phase_grad_check(report)
+    phase_trainer(report)
+
+
+def phase_train_profile(report):
+    """One full fine-tune step of t2v-1.3B at 32,760 tokens (per-block
+    remat, AdamW) under torch.profiler. Not in the default phases."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.training import (TrainConfig, make_optimizer,
+                                             make_train_step)
+
+    cfg = WAN_CONFIGS[TRAIN_TASK].model
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    model, rope = _train_inputs(cfg, gen)
+    tc = TrainConfig(remat=True)
+    step = make_train_step(model, tc, rope,
+                           make_optimizer(list(model.parameters()), tc),
+                           generator=gen)
+    batch = {"latents": torch.randn(1, *TRAIN_LATENT, generator=gen,
+                                    device=DEVICE),
+             "context": torch.randn(1, cfg.text_len, cfg.text_dim,
+                                    generator=gen, device=DEVICE)}
+    report["train_profile"] = profile(
+        lambda: step(batch),
+        "t2v-1.3B fine-tune step, 30 blocks, 32,760 tokens, per-block "
+        "remat, fp32 AdamW", 7)
+    del model, step
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
-          4: phase_main_path, 5: phase_profile}
+          4: phase_main_path, 5: phase_profile, 6: phase_train,
+          7: phase_train_profile}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
-                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--phases", default="1,2,3,4,6",
+                    help="comma-separated phases to run (default: all "
+                         "but the profiles, 5 and 7)")
     args = ap.parse_args(argv)
     phases = sorted({int(p) for p in args.phases.split(",")})
 

@@ -30,8 +30,9 @@ EXAMPLE_PROMPT = {
 
 # flag → (value that means "not used", slice of the port that brings it)
 LATER_SLICE_FLAGS = {
-    "ckpt_dir": (None, "the checkpoint-loader slice (reference-layout "
-                       "DiT/T5/VAE loaders)"),
+    "ckpt_dir": (None, "the rest of the checkpoint-loader slice: the T5 and "
+                       "VAE converters (ROADMAP queue 1 item 0; the DiT "
+                       "loader is in, see cli.finetune --ckpt_dir)"),
     "ulysses_size": (1, "the multi-GPU sequence-parallel slice"),
     "ring_size": (1, "the multi-GPU sequence-parallel slice"),
     "dit_fsdp": (False, "the multi-GPU sequence-parallel slice"),

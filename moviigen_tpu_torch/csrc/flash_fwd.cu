@@ -7,6 +7,13 @@
 // masked with -1e30, P rounded to bf16 before the P.V product, rows whose
 // normalizer is 0 divided by 1, output written in bf16.
 //
+// The template flag kStats gives the variant that replaces
+// _flash_kernel_stats (the custom-VJP forward under training): the same
+// function, plus each row's running max m (base 2) and unguarded
+// normalizer l, written fp32 [B, N, Lq] for the backward kernels
+// (flash_bwd.cu). The extra bytes, 8 per query row against 256 of q and
+// out, leave its bound where the plain forward's is.
+//
 // What bounds it: tensor-core operations. Self-attention does
 // 4 * B * N * Lq * Lk * D flops on 4 * B * L * N * D * 2 bytes, about
 // 2,000 flops per byte at L = 7,800, far above the card's ~295 flops per
@@ -27,28 +34,27 @@
 // through their strides, with no transposed or padded copies.
 // Not yet used: wgmma, TMA, warp specialisation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 128;                 // head dim
+using namespace flash;
+
 constexpr int kBlockM = 128;            // query rows per block
 constexpr int kBlockN = 64;             // keys per tile
 constexpr int kWarps = 8;               // 16 query rows each
 constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;            // shared row stride in elements (272 B)
 constexpr int kQElems = kBlockM * kLds;
 constexpr int kKVElems = kBlockN * kLds;
 constexpr int kSmemBytes = (kQElems + 4 * kKVElems) * 2;  // Q + 2x(K, V)
-constexpr float kNegInf = -1e30f;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* m;          // [B, N, Lq] row max (base 2), stats variant only
+  float* l;          // [B, N, Lq] softmax normalizer, stats variant only
   const int* klens;  // [B] or null
   int lq, lk;
   long long sqb, sql, sqn;
@@ -58,62 +64,7 @@ struct Params {
   float qscale;      // bf16(scale * log2 e), as a float
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -308,12 +259,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // ---- normalise and write this warp's rows
-  float l_fin[2];
+  float l_sum[2], l_fin[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_sum[r] = l;
     l_fin[r] = (l == 0.f) ? 1.f : l;
   }
   __nv_bfloat16* og = p.o + b * p.sob + h * p.son;
@@ -331,33 +283,53 @@ __global__ void __launch_bounds__(kThreads)
           __floats2bfloat162_rn(acc[dt][2] / l_fin[1], acc[dt][3] / l_fin[1]);
     }
   }
+  // ---- stats variant: the row max and the unguarded normalizer, as the
+  // Pallas _flash_kernel_stats stores them (m and l are the same on the
+  // four threads of a quad; the first one writes)
+  if constexpr (kStats) {
+    if (t == 0) {
+      const long long base = (static_cast<long long>(b) * gridDim.y + h) * p.lq;
+      if (row0 < p.lq) {
+        p.m[base + row0] = m_run[0];
+        p.l[base + row0] = l_sum[0];
+      }
+      if (row1 < p.lq) {
+        p.m[base + row1] = m_run[1];
+        p.l[base + row1] = l_sum[1];
+      }
+    }
+  }
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes. Tensors are [B, L, N, D] bf16
-// with unit stride on D and every other stride (in elements) a multiple
-// of 8; klens is an int32 [B] device array or null. Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, const void* klens, int batch,
-                              int heads, int lq, int lk, int head_dim,
-                              long long sqb, long long sql, long long sqn,
-                              long long skb, long long skl, long long skn,
-                              long long svb, long long svl, long long svn,
-                              long long sob, long long sol, long long son,
-                              float qscale, void* stream) {
+template <bool kStats>
+int launch(const Params& p, int batch, int heads, int head_dim,
+           void* stream) {
   if (head_dim != kD) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch == 0 || heads == 0 || lq == 0) return 0;
+  if (batch == 0 || heads == 0 || p.lq == 0) return 0;
+  dim3 grid((p.lq + kBlockM - 1) / kBlockM, heads, batch);
+  flash_fwd_kernel<kStats><<<grid, kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   void* m, void* l, const void* klens, int lq, int lk,
+                   long long sqb, long long sql, long long sqn,
+                   long long skb, long long skl, long long skn,
+                   long long svb, long long svl, long long svn,
+                   long long sob, long long sol, long long son,
+                   float qscale) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
   p.klens = static_cast<const int*>(klens);
   p.lq = lq;
   p.lk = lk;
@@ -366,8 +338,40 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   p.svb = svb; p.svl = svl; p.svn = svn;
   p.sob = sob; p.sol = sol; p.son = son;
   p.qscale = qscale;
-  dim3 grid((lq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return p;
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Tensors are [B, L, N, D] bf16
+// with unit stride on D and every other stride (in elements) a multiple
+// of 8; klens is an int32 [B] device array or null. Each launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              void* o, const void* klens, int batch,
+                              int heads, int lq, int lk, int head_dim,
+                              long long sqb, long long sql, long long sqn,
+                              long long skb, long long skl, long long skn,
+                              long long svb, long long svl, long long svn,
+                              long long sob, long long sol, long long son,
+                              float qscale, void* stream) {
+  const Params p = make_params(q, k, v, o, nullptr, nullptr, klens, lq, lk,
+                               sqb, sql, sqn, skb, skl, skn, svb, svl, svn,
+                               sob, sol, son, qscale);
+  return launch<false>(p, batch, heads, head_dim, stream);
+}
+
+// The stats variant (replaces _flash_kernel_stats): also writes m and l,
+// fp32 [B, N, Lq] contiguous.
+extern "C" int flash_fwd_stats_bf16(
+    const void* q, const void* k, const void* v, void* o, void* m, void* l,
+    const void* klens, int batch, int heads, int lq, int lk, int head_dim,
+    long long sqb, long long sql, long long sqn, long long skb,
+    long long skl, long long skn, long long svb, long long svl,
+    long long svn, long long sob, long long sol, long long son,
+    float qscale, void* stream) {
+  const Params p = make_params(q, k, v, o, m, l, klens, lq, lk, sqb, sql,
+                               sqn, skb, skl, skn, svb, svl, svn, sob, sol,
+                               son, qscale);
+  return launch<true>(p, batch, heads, head_dim, stream);
 }

@@ -329,3 +329,69 @@ class FlowDPMSolverMultistepScheduler(_TableSolverBase):
             pc[:1 + self.solver_order],
             (sample, m_t, *state.m_hist[:self.solver_order - 1]))
         return x_next, SolverState(m_hist=new_hist, last_sample=sample.float())
+
+
+class FlowMatchScheduler:
+    """Simple Euler flow-match scheduler with training helpers: the JAX
+    package's ``FlowMatchScheduler`` (ref ``wan/utils/fm_solvers.py:
+    860-934``; ``training_target = noise − sample``)."""
+
+    def __init__(self, num_inference_steps: int = 100,
+                 num_train_timesteps: int = 1000, shift: float = 3.0,
+                 sigma_max: float = 1.0, sigma_min: float = 0.003 / 1.002,
+                 extra_one_step: bool = False):
+        self.num_train_timesteps = num_train_timesteps
+        self.shift = shift
+        self.sigma_max = sigma_max
+        self.sigma_min = sigma_min
+        self.extra_one_step = extra_one_step
+        self.linear_timesteps_weights = None
+        self.set_timesteps(num_inference_steps)
+
+    def set_timesteps(self, num_inference_steps: int = 100,
+                      denoising_strength: float = 1.0,
+                      training: bool = False,
+                      shift: Optional[float] = None) -> None:
+        if shift is not None:
+            self.shift = shift
+        start = self.sigma_min + (self.sigma_max - self.sigma_min) \
+            * denoising_strength
+        n = num_inference_steps + 1 if self.extra_one_step \
+            else num_inference_steps
+        sig = np.linspace(start, self.sigma_min, n)[:num_inference_steps]
+        sig = shift_sigmas(sig, self.shift)
+        self.sigmas = sig.astype(np.float32)
+        self.timesteps = (sig * self.num_train_timesteps).astype(np.float32)
+        if training:
+            x = self.timesteps
+            y = np.exp(-2 * ((x - num_inference_steps / 2)
+                             / num_inference_steps) ** 2)
+            y_shifted = y - y.min()
+            self.linear_timesteps_weights = (
+                y_shifted * (num_inference_steps / y_shifted.sum()))
+
+    def _timestep_id(self, timestep) -> int:
+        return int(np.argmin(np.abs(self.timesteps - float(timestep))))
+
+    def step(self, model_output: torch.Tensor, timestep,
+             sample: torch.Tensor, to_final: bool = False) -> torch.Tensor:
+        tid = self._timestep_id(timestep)
+        sigma = self.sigmas[tid]
+        if to_final or tid + 1 >= len(self.timesteps):
+            sigma_next = 0.0
+        else:
+            sigma_next = self.sigmas[tid + 1]
+        return sample + model_output * float(np.float32(sigma_next - sigma))
+
+    def add_noise(self, original_samples: torch.Tensor, noise: torch.Tensor,
+                  timestep) -> torch.Tensor:
+        sigma = float(self.sigmas[self._timestep_id(timestep)])
+        return (1 - sigma) * original_samples + sigma * noise
+
+    def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
+                        timestep) -> torch.Tensor:
+        return noise - sample
+
+    def training_weight(self, timestep) -> float:
+        return float(
+            self.linear_timesteps_weights[self._timestep_id(timestep)])

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (named by
-a hash of its source, so an edited source is rebuilt), then loaded with
-``ctypes``. Builds happen at first use, never at import.
+a hash of its source and the shared ``csrc/*.cuh`` headers, so an edited
+source is rebuilt), then loaded with ``ctypes``. Builds happen at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -41,9 +42,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    shared header under ``csrc/``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

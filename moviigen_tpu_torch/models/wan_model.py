@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import WanModelConfig
 from ..ops.attention import attention
@@ -266,18 +267,54 @@ class WanModel(nn.Module):
             * (1 + hm[:, 1][:, None, :]) + hm[:, 0][:, None, :]
         return _dense(self.head, xh, torch.float32)
 
+    def run_blocks(self, xr, e0, ctx, rope, k_lens, compute_dtype,
+                   attn_backend, remat=False, remat_group=1):
+        """The block stack over the residual stream (the JAX ``run_blocks``,
+        wan_model.py:1113-1170). ``remat`` recomputes each block in the
+        backward (``torch.utils.checkpoint``, non-reentrant), so only the
+        block inputs are kept; ``remat_group=g`` nests it: every g-th
+        residual is kept, and each block inside a group is checkpointed
+        again (one more forward of each block in the backward)."""
+        args = (e0, ctx, rope, k_lens, compute_dtype, attn_backend)
+        blocks = list(self.blocks)
+        g = remat_group if remat else 1
+
+        def ckpt(fn, *a):
+            # the blocks draw no random numbers: no RNG state to keep
+            return checkpoint(fn, *a, use_reentrant=False,
+                              preserve_rng_state=False)
+
+        if g > 1:
+            if len(blocks) % g:
+                raise ValueError(f"remat_group={g} must divide the "
+                                 f"{len(blocks)}-layer stack")
+
+            def group(x, i0):
+                for blk in blocks[i0:i0 + g]:
+                    x = ckpt(blk, x, *args)
+                return x
+
+            for i0 in range(0, len(blocks), g):
+                xr = ckpt(group, xr, i0)
+        else:
+            for blk in blocks:
+                xr = ckpt(blk, xr, *args) if remat else blk(xr, *args)
+        return xr
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope: RopeTables, seq_len: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 attn_backend: str = "auto",
-                residual_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                residual_dtype: torch.dtype = torch.float32,
+                remat: bool = False, remat_group: int = 1) -> torch.Tensor:
         """Denoising forward (ref WanModel.forward, model.py:486-579).
 
         x: [B, C_in, F, H, W] latents; t: [B] timesteps; context:
         [B, text_len, text_dim] zero-padded text embeddings; rope: tables
         for the (F/pt, H/ph, W/pw) grid; seq_len: pad the token sequence
-        to this length (padded keys are masked). Returns the fp32
-        prediction [B, C_out, F, H, W]."""
+        to this length (padded keys are masked); remat, remat_group: see
+        ``run_blocks`` (training). Returns the fp32 prediction
+        [B, C_out, F, H, W]."""
         cfg = self.cfg
         knobs = [k for k in cfg.memory_knobs() if getattr(cfg, k) is not None]
         if knobs:
@@ -287,9 +324,7 @@ class WanModel(nn.Module):
                 "need them at 480p/720p)")
         xt, e, e0, ctx, grid, k_lens = self.embed_inputs(
             x, t, context, seq_len=seq_len, compute_dtype=compute_dtype)
-        xr = xt.to(residual_dtype)
-        for blk in self.blocks:
-            xr = blk(xr, e0, ctx, rope, k_lens, compute_dtype, attn_backend)
+        xr = self.run_blocks(xt.to(residual_dtype), e0, ctx, rope, k_lens,
+                             compute_dtype, attn_backend, remat, remat_group)
         out = self.head_output(xr, e)
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
-

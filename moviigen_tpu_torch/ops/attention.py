@@ -6,10 +6,14 @@ true length; the scale defaults to D**-0.5; q/k/v are cast to
 ``compute_dtype`` first. Bidirectional (no causal mask).
 
 Backends:
-- ``"auto"`` — ``ops.flash_attention.flash_attention``: the Hopper kernel
-  for CUDA tensors, its plain version for CPU tensors;
-- ``"plain"`` — ``flash_attention_plain`` on any device (the counterpart
-  of the JAX ``"xla"`` backend, used to hold the kernel to account).
+- ``"auto"`` — ``ops.flash_attention.flash_attention``: the Hopper kernels
+  for CUDA tensors, their plain twins for CPU tensors;
+- ``"plain"`` — the plain twins on any device (the counterpart of the JAX
+  ``"xla"`` backend, used to hold the kernels to account).
+
+Both are differentiable: under autograd each goes through the
+``FlashAttention`` function (stats forward, then the dKV and dQ
+backward), so training memory stays O(L·block) like the JAX custom VJP.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 
 from ..configs import ATTN_BACKENDS
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (FlashAttention, flash_attention,
+                              flash_attention_plain, needs_grad)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,6 +41,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q = q.to(compute_dtype)
     k = k.to(compute_dtype)
     v = v.to(compute_dtype)
-    if backend == "plain":
-        return flash_attention_plain(q, k, v, k_lens, scale)
-    return flash_attention(q, k, v, k_lens, scale)
+    if backend == "auto":
+        return flash_attention(q, k, v, k_lens, scale)
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, k_lens, scale, False)
+    return flash_attention_plain(q, k, v, k_lens, scale)

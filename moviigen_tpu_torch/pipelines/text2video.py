@@ -80,7 +80,13 @@ class WanT2V:
 
     def __init__(self, config: PipelineConfig, init_seed: int = 0,
                  attn_backend: str = "auto",
-                 residual_dtype: str = "float32", device=None):
+                 residual_dtype: str = "float32", device=None,
+                 checkpoint_dir=None):
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "WanT2V(checkpoint_dir=...) needs the T5 and VAE converters "
+                "(ROADMAP queue 1 item 0); the port loads the DiT alone "
+                "(models.wan_convert.load_wan_checkpoint)")
         if residual_dtype not in ("float32", "bfloat16"):
             raise ValueError("residual_dtype must be float32|bfloat16, "
                              f"got {residual_dtype!r}")

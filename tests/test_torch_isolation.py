@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``moviigen_tpu_torch``
-loads neither JAX nor any module of the JAX package, and no source of the
-port (nor ``chip_smoke.py``) imports them."""
+loads neither JAX nor any module of the JAX package, nor a package that
+the card's machine lacks (``safetensors``, ``optax``, ``orbax``,
+``tensorboard``), and no source of the port (nor ``chip_smoke.py``)
+imports JAX or the JAX package."""
 
 import json
 import pathlib
@@ -25,14 +27,20 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
-    assert "moviigen_tpu_torch.ops.flash_attention" in mods
+    for mod in ("ops.flash_attention", "utils.safetensors", "models.census",
+                "models.wan_convert", "diffusion.flow_match", "training",
+                "training.train_step", "training.data",
+                "training.checkpoint", "cli.finetune"):
+        assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'jaxlib'\n"
-        "             or m == 'moviigen_tpu' or m.startswith('moviigen_tpu.'))\n"
+        "             or m == 'moviigen_tpu' or m.startswith('moviigen_tpu.')\n"
+        "             or m.split('.')[0] in ('safetensors', 'optax', 'orbax',\n"
+        "                                    'tensorboard'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

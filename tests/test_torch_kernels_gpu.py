@@ -11,12 +11,30 @@ import pytest
 import torch
 
 from moviigen_tpu_torch.ops import flash_attention as tfa
+from moviigen_tpu_torch.ops.attention import attention
 
 pytestmark = pytest.mark.gpu
 
 # chip_smoke.py's tolerance: 1e-2 of the output's largest magnitude (bf16
 # output rounding on both sides, P rounded at different key blocks)
 REL_TOL = 1e-2
+# Gradients: the kernels round P and dS to bf16 (8 bits) before the
+# tensor-core products that the plain twin does in fp32, and write bf16;
+# the rounding errors are independent from term to term and mostly
+# average out over the Lq or Lk terms of each sum, so the result stays
+# within a few bf16 steps of its scale. 2e-2 of the largest magnitude
+# bounds that; a wrong fragment, mask or scale is off by O(1) of it.
+GRAD_REL_TOL = 2e-2
+
+SHAPES = [
+    (2, 1000, 1000, None),            # ragged q and k tiles
+    (2, 777, 512, None),              # cross-attention shape
+    (2, 1000, 1000, (1000, 600)),     # per-batch key mask, tiles past it
+    (1, 64, 1, None),                 # a single key
+]
+# With one key the softmax is constant and dq is 0 up to rounding, which
+# no relative bound can hold; the backward takes three keys there.
+BWD_SHAPES = SHAPES[:3] + [(1, 64, 3, None)]
 
 
 @pytest.fixture
@@ -26,45 +44,128 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _check(got, want):
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+def _close(got, want, tol=REL_TOL):
+    assert got.dtype == want.dtype and got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     err = float((got.float() - want.float()).abs().max())
-    assert err <= REL_TOL * float(want.float().abs().max())
+    assert err <= tol * float(want.float().abs().max())
 
 
-@pytest.mark.parametrize("b,lq,lk,k_lens", [
-    (2, 1000, 1000, None),            # ragged q and k tiles
-    (2, 777, 512, None),              # cross-attention shape
-    (2, 1000, 1000, (1000, 600)),     # per-batch key mask
-    (1, 64, 1, None),                 # a single key
-])
+def _qkv(gen, b, lq, lk, requires_grad=False):
+    return [torch.randn(b, l, 8, 128, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(requires_grad)
+            for l in (lq, lk, lk)]
+
+
+def _klens(k_lens):
+    return None if k_lens is None else torch.tensor(k_lens, device="cuda")
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, lq, lk, k_lens):
-    q, k, v = (torch.randn(b, l, 8, 128, generator=cuda, device="cuda",
-                           dtype=torch.bfloat16) for l in (lq, lk, lk))
-    kl = None if k_lens is None else torch.tensor(k_lens, device="cuda")
+    q, k, v = _qkv(cuda, b, lq, lk)
+    kl = _klens(k_lens)
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, kl)
     assert tfa.flash_attention.launches == before + 1
-    _check(got, tfa.flash_attention_plain(q, k, v, kl))
+    _close(got, tfa.flash_attention_plain(q, k, v, kl))
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", SHAPES)
+def test_stats_kernel_matches_plain(cuda, b, lq, lk, k_lens):
+    q, k, v = _qkv(cuda, b, lq, lk)
+    kl = _klens(k_lens)
+    before = tfa.flash_attention.stats_launches
+    got = tfa.flash_attention_stats_cuda(q, k, v, kl)
+    assert tfa.flash_attention.stats_launches == before + 1
+    want = tfa.flash_attention_stats_plain(q, k, v, kl)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", BWD_SHAPES)
+def test_backward_kernels_match_plain(cuda, b, lq, lk, k_lens):
+    q, k, v = _qkv(cuda, b, lq, lk)
+    kl = _klens(k_lens)
+    out, m, l = tfa.flash_attention_stats_plain(q, k, v, kl)
+    do = torch.randn(out.shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    counts = tfa.launch_counts()
+    got = tfa.flash_bwd_cuda(q, k, v, kl, out, m, l, do)
+    after = tfa.launch_counts()
+    assert after["dkv_launches"] == counts["dkv_launches"] + 1
+    assert after["dq_launches"] == counts["dq_launches"] + 1
+    want = tfa.flash_bwd_plain(q, k, v, kl, out, m, l, do)
+    for g, w in zip(got, want):
+        _close(g.contiguous(), w.contiguous(), GRAD_REL_TOL)
+    if k_lens is not None:  # keys past k_lens get exactly zero gradient
+        for g in got[1:]:
+            assert not bool(g[1, k_lens[1]:].any())
+
+
+def test_attention_grads_on_cuda_match_plain(cuda):
+    """Under autograd the kernel path keeps q, k and v in the graph (the
+    forward kernel alone would cut them out) and gives the plain path's
+    gradients."""
+    base = _qkv(cuda, 2, 600, 600)
+    kl = _klens((600, 333))
+    do = torch.randn(base[0].shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    grads = {}
+    for backend in ("auto", "plain"):
+        q, k, v = (x.detach().clone().requires_grad_() for x in base)
+        out = attention(q, k, v, k_lens=kl, backend=backend)
+        assert out.grad_fn is not None
+        out.backward(do)
+        grads[backend] = (q.grad, k.grad, v.grad)
+    for g, w in zip(grads["auto"], grads["plain"]):
+        assert g is not None and bool(g.abs().max() > 0)
+        _close(g, w, GRAD_REL_TOL)
+
+
+def test_backward_is_deterministic(cuda):
+    q, k, v = _qkv(cuda, 1, 1000, 1000)
+    out, m, l = tfa.flash_attention_stats_cuda(q, k, v)
+    do = torch.randn(out.shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    first = tfa.flash_bwd_cuda(q, k, v, None, out, m, l, do)
+    second = tfa.flash_bwd_cuda(q, k, v, None, out, m, l, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
-    """q/k/v as views into wider tensors (the kernel reads [B, L, N, D]
-    through its strides, no copies)."""
+    """q/k/v as views into wider tensors (the kernels read [B, L, N, D]
+    through their strides, no copies)."""
     qkv = torch.randn(2, 300, 3, 4, 128, generator=cuda, device="cuda",
                       dtype=torch.bfloat16)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     assert not q.is_contiguous()
-    _check(tfa.flash_attention(q, k, v),
-           tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
-                                     v.contiguous()))
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    _close(tfa.flash_attention(q, k, v),
+           tfa.flash_attention_plain(qc, kc, vc))
+    out, m, l = tfa.flash_attention_stats_cuda(q, k, v)
+    do = torch.randn(out.shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    got = tfa.flash_bwd_cuda(q, k, v, None, out, m, l, do)
+    want = tfa.flash_bwd_plain(qc, kc, vc, None, out, m, l, do)
+    for g, w in zip(got, want):
+        _close(g.contiguous(), w.contiguous(), GRAD_REL_TOL)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D=64"):
         tfa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="D=64"):
+        tfa.flash_attention_stats_cuda(q, q, q)
+    m = torch.zeros(1, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="D=64"):
+        tfa.flash_bwd_cuda(q, q, q, None, q, m, m, q)
     q = torch.zeros(1, 16, 2, 128, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_attention_stats_cuda(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_bwd_cuda(q, q, q, None, q, m, m, q)
