@@ -7,12 +7,15 @@ NVIDIA Hopper card.
 
 Phases:
  1. setup: card name and power limit, TF32 off, build the CUDA kernels
-    (``flash_fwd`` and ``flash_bwd``, one ``nvcc`` each, in parallel);
+    (``flash_fwd``, ``flash_bwd`` and ``int8_gemm``, one ``nvcc`` each, in
+    parallel);
  2. each kernel against its plain PyTorch version on the card, at the
-    shapes of the serving and the training path, with times, bounds and
-    the library yardstick;
+    shapes of the serving, the training and the W8A8 path, with times,
+    bounds and the library yardsticks;
  3. the t2v-14B DiT at full width (depth cut) with the kernel against the
-    plain attention;
+    plain attention; then quantized: W8A8 through the int8 GEMM kernel
+    against its plain version, int8 and int4 against the same weights
+    dequantized into plain linears;
  4. the serving path: ``WanT2V`` for t2v-14B at full width and depth
     (random weights) answering two requests, with the forward kernel's
     launches counted;
@@ -25,7 +28,14 @@ Phases:
     loaded back, a synthetic latent dataset) with the stats-forward,
     dKV and dQ launches counted, and its final checkpoint read back;
  7. (only when asked: ``--phases 7``) a torch.profiler breakdown of one
-    full-depth t2v-1.3B fine-tune step at 32,760 tokens.
+    full-depth t2v-1.3B fine-tune step at 32,760 tokens;
+ 8. quantized serving: (a) ``WanT2V(quant="w8a8")`` for t2v-14B at full
+    width and depth answering the first request, with the int8 GEMM's
+    launches counted; (b) ``cli.generate --ckpt_dir --quant int8`` twice
+    over a random checkpoint directory at full width (depth cut), the
+    second start from the quantized caches;
+ 9. (only when asked: ``--phases 9``) a torch.profiler breakdown of one
+    full-depth W8A8 DiT forward at the first request's shape.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -35,6 +45,7 @@ kernels with their measured numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -48,6 +59,7 @@ import numpy as np
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Main-path shapes at t2v-14B: 832*480, 17 frames -> 7,800 tokens (batched
@@ -95,6 +107,24 @@ TRAIN_CASES = [
 # by O(1).
 GRAD_REL_TOL = 2e-2
 
+# W8A8 shapes at t2v-14B (dim 5120, ffn 13824): M = B x tokens of the
+# first request (2 x 7,800), the 2 x 512 text tokens of the cross k/v,
+# the 81-frame clip (32,760) and a ragged M below one row tile.
+INT8_CASES = [
+    # name, M, K, N
+    ("a_attn_M15600_K5120_N5120", 15600, 5120, 5120),
+    ("b_ffn1_M15600_K5120_N13824", 15600, 5120, 13824),
+    ("c_ffn2_M15600_K13824_N5120", 15600, 13824, 5120),
+    ("d_text_M1024_K5120_N5120", 1024, 5120, 5120),
+    ("e_ffn1_M32760_K5120_N13824", 32760, 5120, 13824),
+    ("f_ragged_M333_K5120_N5120", 333, 5120, 5120),
+]
+# The int8 GEMM against its plain version: no tolerance. The int32 sum is
+# exact in both, and the kernel's epilogue rounds each fp32 operation on
+# its own (no fma contraction) exactly as the plain version's eager ops
+# do, so every output element must be the same bits.
+INT8_ABS_TOL = 0.0
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -119,8 +149,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def _bound(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bound(flops, nbytes, peak_ops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -179,7 +209,7 @@ def phase_setup(report):
     from moviigen_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    secs = kernels.build(["flash_fwd", "flash_bwd"])
+    secs = kernels.build(kernels.KERNELS)
     log(f"phase 1: built kernels {secs} in {time.perf_counter() - t0:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
@@ -243,6 +273,7 @@ def phase_kernels(report):
         torch.cuda.empty_cache()
     report["flash_cases"] = cases
     train_kernel_cases(report)
+    int8_kernel_cases(report)
 
 
 def _check(name, what, got, want, tol):
@@ -346,6 +377,92 @@ def train_kernel_cases(report):
     report["train_cases"] = rows
 
 
+def int8_kernel_cases(report):
+    """The int8 GEMM at the W8A8 path's shapes, with and without the
+    fused bias, against its plain version (bit for bit). Yardsticks the
+    port never calls: ``torch._int_mm`` plus the eager rescale (the
+    library's route to the same function) and the bf16 ``F.linear`` of
+    the same layer (what W8A8 competes with)."""
+    import torch
+    import torch.nn.functional as F
+
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.quantization import (dequantize_leaf,
+                                                     quantize_activations,
+                                                     quantize_linear_int4)
+
+    rows = []
+    for i, (name, m, k, n) in enumerate(INT8_CASES):
+        gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
+        x = torch.randn(m, k, generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16)
+        xq, sx = quantize_activations(x)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        sw = torch.full((n,), 0.02 / k ** 0.5, device=DEVICE)
+        bias = torch.randn(n, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+        errs = {}
+        for tag, b in (("no_bias", None), ("bias", bias)):
+            got = ig.int8_gemm_fused(xq, wq, sx, sw, b)
+            want = ig.int8_gemm_plain(xq, wq, sx, sw, b)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"int8 {name} {tag}: non-finite output")
+            errs[tag] = float((got.float() - want.float()).abs().max())
+            if errs[tag] > INT8_ABS_TOL or not torch.equal(got, want):
+                raise RuntimeError(
+                    f"int8 {name} {tag}: kernel differs from plain, max abs "
+                    f"err {errs[tag]:.3e} (max |plain| "
+                    f"{float(want.float().abs().max()):.3e})")
+            del got, want
+        ops = 2.0 * m * n * k
+        nbytes = m * k + n * k + 2 * m * n + 4 * (m + n)
+        bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
+        bound_bias_ms, _ = _bound(ops, nbytes + 4 * n, PEAK_INT8_OPS)
+        ms = cuda_ms(lambda: ig.int8_gemm_fused(xq, wq, sx, sw))
+        ms_bias = cuda_ms(lambda: ig.int8_gemm_fused(xq, wq, sx, sw, bias))
+        plain_ms = cuda_ms(lambda: ig.int8_gemm_plain(xq, wq, sx, sw),
+                           iters=3, warmup=1)
+        wt = wq.t()  # [K, N] column-major, the layout _int_mm wants
+
+        def library():
+            return (torch._int_mm(xq, wt).float() * sx * sw[None, :]).to(
+                torch.bfloat16)
+
+        try:
+            same = torch.equal(library(),
+                               ig.int8_gemm_plain(xq, wq, sx, sw))
+            lib_ms = cuda_ms(library)
+            int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
+        except RuntimeError as e:  # a yardstick only: some shapes it refuses
+            log(f"phase 2: int8 {name}: torch._int_mm refused: {e}")
+            same = lib_ms = int_mm_ms = None
+        wb = torch.randn(n, k, generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: F.linear(x, wb))
+        quant_ms = cuda_ms(lambda: quantize_activations(x))
+        # what a weight-only linear pays per call before its cuBLAS product
+        deq8_ms = cuda_ms(lambda: dequantize_leaf(wq, sw, torch.bfloat16))
+        q4, s4 = quantize_linear_int4(wb)
+        deq4_ms = cuda_ms(lambda: dequantize_leaf(q4, s4, torch.bfloat16))
+        del q4, s4
+        row = dict(case=name, M=m, K=k, N=n, max_abs_err=max(errs.values()),
+                   ms=ms, ms_bias=ms_bias, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="torch._int_mm + eager rescale",
+                   library_equal=same, int_mm_only_ms=int_mm_ms,
+                   bf16_linear_ms=bf16_ms, quantize_activations_ms=quant_ms,
+                   dequant_int8_ms=deq8_ms, dequant_int4_ms=deq4_ms,
+                   bound_ms=bound_ms, bound_bias_ms=bound_bias_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms,
+                   tops=ops / ms / 1e9)
+        log("phase 2: int8 " + json.dumps(row))
+        rows.append(row)
+        del x, xq, sx, wq, wt, wb
+        torch.cuda.empty_cache()
+    report["int8_cases"] = rows
+
+
 def kernels_line(report):
     cases = report["flash_cases"]
     main = cases[0]
@@ -363,6 +480,22 @@ def kernels_line(report):
         "library_ms": main["library_ms"],
         "cases": cases,
     }]
+    int8 = report.get("int8_cases")
+    if int8:
+        main8 = int8[0]  # the attention projections of the first request
+        entries.append({
+            "name": "int8_gemm",
+            "route": "cuda",
+            "source": "moviigen_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "moviigen_tpu/ops/int8_gemm.py:53",
+            "launches": report.get("int8_launches", 0),
+            "max_abs_err": max(c["max_abs_err"] for c in int8),
+            "ms": main8["ms"], "plain_ms": main8["plain_ms"],
+            "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
+            "library_ms": main8["library_ms"],
+            "bf16_linear_ms": main8["bf16_linear_ms"],
+            "cases": int8,
+        })
     train = report.get("train_cases")
     if not train:
         return {"kernels": entries}
@@ -467,6 +600,119 @@ def phase_dit(report):
     report["dit"] = row
     del model, outs, got, want
     torch.cuda.empty_cache()
+    phase_dit_quant(report)
+
+
+# Quantized DiT (phase 3), 2 blocks at full width, bf16 compute.
+# W8A8, int8 GEMM kernel against its plain version: every GEMM is the same
+# bits (INT8_ABS_TOL) and the rest of the forward is the same code on the
+# same inputs, so the predictions are expected equal; the bound allows for
+# one reduction elsewhere taking another order between two runs, which
+# can flip a round(x / sx) tie and move one activation code by a step
+# (1/127 of its token's absmax).
+# int8 / int4 weight-only against plain nn.Linears holding the same
+# dequantized bf16 weights: the same cuBLAS product on the same values;
+# the bound allows for cuBLAS choosing another algorithm for a weight that
+# is a temporary.
+QUANT_DIT_REL_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def plain_int8_gemm():
+    """Inside, the W8A8 linears run the int8 GEMM's plain version on the
+    card (the reference the kernel path is held against)."""
+    from moviigen_tpu_torch.models import wan_model as wm
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+
+    saved = ig.int8_gemm_fused, wm.int8_gemm_fused
+    ig.int8_gemm_fused = wm.int8_gemm_fused = ig.int8_gemm_plain
+    try:
+        yield
+    finally:
+        ig.int8_gemm_fused, wm.int8_gemm_fused = saved
+
+
+def _dit_inputs(cfg, gen):
+    """The first request's DiT inputs: B=2 (batched CFG), 7,800 tokens."""
+    import torch
+
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+
+    x = torch.randn(2, cfg.in_dim, 5, 60, 104, generator=gen, device=DEVICE)
+    t = torch.full((2,), 500.0, device=DEVICE)
+    ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
+                      device=DEVICE)
+    return x, t, ctx, rope_3d_freqs((5, 30, 52), cfg.head_dim, device=DEVICE)
+
+
+def phase_dit_quant(report):
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.quantization import (TARGET_SUFFIXES,
+                                                     block_linear,
+                                                     dequantize_leaf)
+
+    cfg = WAN_CONFIGS["t2v-14B"].model.replace(num_layers=DIT_SMOKE_LAYERS)
+    rows = {}
+    for quant in ("w8a8", "int8", "int4"):
+        gen = torch.Generator(device=DEVICE).manual_seed(10)
+        model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE,
+                         quant=quant).init_weights(gen)
+        with torch.no_grad():
+            model.head.weight.normal_(0.0, 0.02, generator=gen)  # live head
+            for blk in model.blocks:  # non-zero biases: both bias orders
+                for suffix in TARGET_SUFFIXES:
+                    owner, attr = block_linear(blk, suffix)
+                    if hasattr(owner, attr):
+                        getattr(owner, attr).bias.normal_(0.0, 0.3,
+                                                          generator=gen)
+            x, t, ctx, rope = _dit_inputs(cfg, gen)
+            ig.reset_launch_counts()
+            got = model(x, t, ctx, rope, seq_len=7800).float()
+            launches = ig.launch_counts()["int8_gemm_launches"]
+            if quant == "w8a8":
+                with plain_int8_gemm():
+                    want = model(x, t, ctx, rope, seq_len=7800).float()
+            else:
+                twin = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE)
+                params = dict(model.named_parameters())
+                for name, p in twin.named_parameters():
+                    if name in params:
+                        p.copy_(params[name])
+                for blk, tblk in zip(model.blocks, twin.blocks):
+                    for suffix in TARGET_SUFFIXES:
+                        owner, attr = block_linear(blk, suffix)
+                        if not hasattr(owner, attr):
+                            continue
+                        q = getattr(owner, attr)
+                        lin = getattr(*block_linear(tblk, suffix))
+                        lin.weight.copy_(dequantize_leaf(
+                            q.qweight, q.scale, torch.bfloat16))
+                        lin.bias.copy_(q.bias)
+                want = twin(x, t, ctx, rope, seq_len=7800).float()
+                del twin
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"DiT {quant}: non-finite prediction")
+        rel = float((got - want).norm() / want.norm())
+        expected = 10 * DIT_SMOKE_LAYERS if quant == "w8a8" else 0
+        rows[quant] = dict(rel_norm_err=rel,
+                           equal=bool(torch.equal(got, want)),
+                           pred_norm=float(want.norm()),
+                           int8_gemm_launches=launches)
+        log(f"phase 3: quantized dit {quant} " + json.dumps(rows[quant]))
+        if rel > QUANT_DIT_REL_TOL:
+            raise RuntimeError(f"DiT {quant}: relative error {rel:.3e} > "
+                               f"{QUANT_DIT_REL_TOL}")
+        if launches != expected:
+            raise RuntimeError(f"DiT {quant}: int8 GEMM launched {launches} "
+                               f"times, expected {expected}")
+        del model, got, want
+        torch.cuda.empty_cache()
+    report["dit_quant"] = rows
 
 
 def phase_main_path(report):
@@ -476,6 +722,7 @@ def phase_main_path(report):
 
     from moviigen_tpu_torch.configs import WAN_CONFIGS
     from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
     from moviigen_tpu_torch.pipelines.text2video import (
         WanT2V, cfg_batched, compute_target_shape_and_seq_len)
     from moviigen_tpu_torch.utils.io import cache_video
@@ -499,6 +746,7 @@ def phase_main_path(report):
         expected = steps * forwards * 2 * config.model.num_layers
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
+        ig.reset_launch_counts()
         t0 = time.perf_counter()
         video = pipe.generate(PROMPT, size=(832, 480), frame_num=frames,
                               sampling_steps=steps, sample_solver=solver,
@@ -508,13 +756,10 @@ def phase_main_path(report):
         launches = counts.pop("launches")
         if any(counts.values()):  # serving runs under no-grad
             raise RuntimeError(f"{name}: training kernels launched {counts}")
+        if ig.launch_counts()["int8_gemm_launches"]:
+            raise RuntimeError(f"{name}: the bf16 path launched the int8 GEMM")
         total_launches += launches
-        if video.shape != (3, frames, 480, 832):
-            raise RuntimeError(f"{name}: video shape {video.shape}")
-        if not np.isfinite(video).all():
-            raise RuntimeError(f"{name}: non-finite video")
-        if video.min() < -1.0 or video.max() > 1.0:
-            raise RuntimeError(f"{name}: video outside [-1, 1]")
+        _serve_checks(name, video, frames)
         if launches != expected:
             raise RuntimeError(f"{name}: flash kernel launched {launches} "
                                f"times, expected {expected}")
@@ -539,6 +784,8 @@ def phase_main_path(report):
 
 
 def _kernel_category(name: str) -> str:
+    if "int8_gemm" in name:
+        return "int8 GEMM (this port's kernel)"
     if "flash_bwd_dkv" in name:
         return "flash dKV (this port's kernel)"
     if "flash_bwd_dq" in name:
@@ -891,16 +1138,231 @@ def phase_train_profile(report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------- quantized serving
+
+# Phase 8b: a checkpoint directory at t2v-14B's width with the depth cut:
+# 2 DiT blocks, and 6 of umT5-XXL's 24 layers, which keeps the encoder's
+# bf16 weights (4.4 GB) above the size from which the quant modes
+# quantize it too.
+CKPT_TASK = "t2v-14B-cut"
+CKPT_DIT_LAYERS, CKPT_T5_LAYERS = 2, 6
+
+
+def _serve_checks(name, video, frames):
+    if video.shape != (3, frames, 480, 832):
+        raise RuntimeError(f"{name}: video shape {video.shape}")
+    if not np.isfinite(video).all():
+        raise RuntimeError(f"{name}: non-finite video")
+    if video.min() < -1.0 or video.max() > 1.0:
+        raise RuntimeError(f"{name}: video outside [-1, 1]")
+
+
+def phase_quant_serving(report):
+    """(a) The W8A8 main path: ``WanT2V(quant="w8a8")`` for t2v-14B at
+    full width and depth (random quantized weights) answering the first
+    request, every block linear through the int8 GEMM kernel."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.quantization import QuantLinear
+    from moviigen_tpu_torch.pipelines.text2video import WanT2V
+
+    config = WAN_CONFIGS["t2v-14B"]
+    name, frames, steps, solver = REQUESTS[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = WanT2V(config, device=DEVICE, quant="w8a8")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    linears = [m for m in pipe.dit.modules() if isinstance(m, QuantLinear)]
+    if len(linears) != 10 * config.model.num_layers or not all(
+            m.act8 for m in linears) or not pipe._quant_t5:
+        raise RuntimeError("w8a8: the DiT's block linears or the T5 are not "
+                           "quantized")
+    fa.reset_launch_counts()
+    ig.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = pipe.generate(PROMPT, size=(832, 480), frame_num=frames,
+                          sampling_steps=steps, sample_solver=solver, seed=42)
+    total_s = time.perf_counter() - t0
+    counts = {**fa.launch_counts(), **ig.launch_counts()}
+    # one batched-CFG forward per step: 10 block linears and 2 attention
+    # sites in each of the 40 blocks
+    want = dict.fromkeys(counts, 0)
+    want["int8_gemm_launches"] = 10 * config.model.num_layers * steps
+    want["launches"] = 2 * config.model.num_layers * steps
+    _serve_checks(name, video, frames)
+    if counts != want:
+        raise RuntimeError(f"w8a8 {name}: launches {counts}, expected {want}")
+    row = dict(request=name, quant="w8a8", tokens=7800, steps=steps,
+               init_s=init_s, weights_gib=weights_gib,
+               t5_s=pipe.timings["t5_s"], step_s=pipe.timings["step_s"],
+               decode_s=pipe.timings["decode_s"], total_s=total_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=counts, video_std=float(video.std()))
+    log("phase 8a: " + json.dumps(row))
+    report["w8a8_request"] = row
+    report["int8_launches"] = counts["int8_gemm_launches"]
+    del pipe
+    torch.cuda.empty_cache()
+    phase_ckpt_dir_serving(report)
+
+
+def phase_ckpt_dir_serving(report):
+    """(b) ``cli.generate --ckpt_dir --quant int8`` as a user runs it,
+    twice, over a random checkpoint directory in the reference layout
+    that the port's exporters write first: the first start quantizes and
+    writes the caches, the second must start from them alone."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch import configs
+    from moviigen_tpu_torch.cli import generate
+    from moviigen_tpu_torch.models import t5 as t5m
+    from moviigen_tpu_torch.models import vae as vaem
+    from moviigen_tpu_torch.models import vae_convert, wan_convert
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.quantization import quantize_linear
+    from moviigen_tpu_torch.pipelines import text2video as t2v
+
+    base = configs.WAN_CONFIGS["t2v-14B"]
+    cfg = base.replace(
+        name=CKPT_TASK,
+        model=base.model.replace(num_layers=CKPT_DIT_LAYERS),
+        t5=base.t5.replace(num_layers=CKPT_T5_LAYERS))
+    configs.WAN_CONFIGS[CKPT_TASK] = cfg
+    configs.SUPPORTED_SIZES[CKPT_TASK] = configs.SUPPORTED_SIZES["t2v-14B"]
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = root / "ckpt"
+    ckpt.mkdir(parents=True)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    t0 = time.perf_counter()
+    dit = WanModel(cfg.model, dtype=torch.float32, device=DEVICE)
+    dit.init_weights(gen)
+    wan_convert.export_wan_safetensors(str(ckpt / wan_convert.EXPORT_NAME),
+                                       dit)
+    fc1 = dit.blocks[0].ffn_fc1.weight.detach().to(torch.bfloat16)
+    want_q, want_s = quantize_linear(fc1)
+    del dit, fc1
+    t5 = t5m.T5Encoder(cfg.t5, dtype=torch.bfloat16, device=DEVICE)
+    t5.init_weights(gen)
+    torch.save(t5m.t5_state_dict(t5), ckpt / cfg.t5_checkpoint)
+    del t5
+    vae = vaem.init_params(cfg.vae, gen, device=DEVICE, encoder=True)
+    torch.save(vae_convert.vae_state_dict(vae, cfg.vae),
+               ckpt / cfg.vae_checkpoint)
+    del vae
+    torch.cuda.empty_cache()
+    export_s = time.perf_counter() - t0
+    ckpt_gib = sum(f.stat().st_size for f in ckpt.iterdir()) / 2**30
+    log(f"phase 8b: exported a random {CKPT_TASK} checkpoint directory "
+        f"({ckpt_gib:.2f} GiB) in {export_s:.1f} s")
+
+    caches = [ckpt / f"moviigen_quant_{tag}_int8.safetensors"
+              for tag in ("dit", "t5")]
+    argv = ["--task", CKPT_TASK, "--device", DEVICE, "--size", "832*480",
+            "--frame_num", "5", "--sample_steps", "2", "--base_seed", "42",
+            "--prompt", PROMPT, "--ckpt_dir", str(ckpt), "--quant", "int8"]
+    rows = []
+    for start in ("first", "second"):
+        if start == "second":  # quantizing again is a failure now
+            def refuse(*args, **kwargs):
+                raise RuntimeError("second start quantized again: the cache "
+                                   "was not used")
+            saved = t2v.quantize_wan_params, t2v.quantize_t5_params
+            t2v.quantize_wan_params = t2v.quantize_t5_params = refuse
+        mtimes = [c.stat().st_mtime_ns if c.exists() else None
+                  for c in caches]
+        fa.reset_launch_counts()
+        ig.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = generate.main(argv + ["--save_file",
+                                        str(root / f"{start}.mp4")])
+        finally:
+            if start == "second":
+                t2v.quantize_wan_params, t2v.quantize_t5_params = saved
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = {**fa.launch_counts(), **ig.launch_counts()}
+        # weight-only int8 goes through cuBLAS: no int8 GEMM launch;
+        # 2 steps x 1 batched forward x 2 attention sites x 2 blocks
+        want = dict.fromkeys(counts, 0)
+        want["launches"] = 2 * 2 * CKPT_DIT_LAYERS
+        if counts != want:
+            raise RuntimeError(f"ckpt_dir {start} start: launches {counts}, "
+                               f"expected {want}")
+        if out is None or not os.path.getsize(out):
+            raise RuntimeError(f"ckpt_dir {start} start: no video written")
+        if not all(c.exists() for c in caches):
+            raise RuntimeError("ckpt_dir: quantized caches not written")
+        if start == "second" and mtimes != [c.stat().st_mtime_ns
+                                            for c in caches]:
+            raise RuntimeError("ckpt_dir: second start rewrote the caches")
+        rows.append(dict(start=start, total_s=total_s, launches=counts))
+        log(f"phase 8b: generate --ckpt_dir --quant int8, {start} start: "
+            + json.dumps(rows[-1]))
+    # what is served is the checkpoint's weights, quantized
+    pipe = t2v.WanT2V(cfg, device=DEVICE, checkpoint_dir=str(ckpt),
+                      quant="int8")
+    lin = pipe.dit.blocks[0].ffn_fc1
+    if not (torch.equal(lin.qweight, want_q)
+            and torch.equal(lin.scale, want_s)):
+        raise RuntimeError("ckpt_dir: the cached int8 DiT is not the "
+                           "quantized checkpoint")
+    cache_gib = sum(c.stat().st_size for c in caches) / 2**30
+    report["ckpt_dir"] = dict(task=CKPT_TASK, checkpoint_gib=ckpt_gib,
+                              cache_gib=cache_gib, export_s=export_s,
+                              starts=rows)
+    log("phase 8b: " + json.dumps(report["ckpt_dir"]))
+    del pipe
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_quant_profile(report):
+    """One W8A8 DiT forward of the full t2v-14B (40 blocks) at the first
+    request's shape under torch.profiler. Not in the default phases."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+
+    cfg = WAN_CONFIGS["t2v-14B"].model
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE, quant="w8a8")
+    model.init_weights(gen)
+    with torch.no_grad():
+        x, t, ctx, rope = _dit_inputs(cfg, gen)
+        report["w8a8_profile"] = profile(
+            lambda: model(x, t, ctx, rope, seq_len=7800),
+            "t2v-14B W8A8, 40 blocks, 7,800 tokens, B=2", 9)
+    del model
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
-          7: phase_train_profile}
+          7: phase_train_profile, 8: phase_quant_serving,
+          9: phase_quant_profile}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6",
+    ap.add_argument("--phases", default="1,2,3,4,6,8",
                     help="comma-separated phases to run (default: all "
-                         "but the profiles, 5 and 7)")
+                         "but the profiles, 5, 7 and 9)")
     args = ap.parse_args(argv)
     phases = sorted({int(p) for p in args.phases.split(",")})
 

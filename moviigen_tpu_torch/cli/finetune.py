@@ -39,8 +39,9 @@ LATER_SLICE_FLAGS = {
     "lora_alpha": (64, "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
     "lora_dtype": ("float32",
                    "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
-    "quant": (None, "QLoRA with the quantization slice (ROADMAP queue 1 "
-                    "item 9)"),
+    "quant": (None, "QLoRA: the quantized base is in (ops/quantization.py), "
+                    "the LoRA adapters it trains are not (ROADMAP queue 1 "
+                    "item 8, training/lora.py)"),
     "compute_ot": (False, "OT noise pairing (ROADMAP queue 1 item 8, "
                           "training/ot.py)"),
     "ffn_bwd_chunk": (None, "the memory knobs (ROADMAP queue 1 item 13)"),

@@ -7,7 +7,14 @@ slice that brings them.
 
 Example:
     python -m moviigen_tpu_torch.cli.generate --task t2v-14B \\
-        --size 832*480 --frame_num 17 --sample_steps 4
+        --size 832*480 --frame_num 17 --sample_steps 4 --quant w8a8
+
+``--ckpt_dir`` names a checkpoint directory in the reference layout (DiT
+safetensors shards, ``models_t5_umt5-xxl-enc-bf16.pth``,
+``Wan2.1_VAE.pth``, the tokenizer folder); without it the weights are
+random. ``--quant int8|int4|w8a8`` quantizes the DiT's block linears (and
+a large umT5); with ``--ckpt_dir`` the quantized trees are cached beside
+the checkpoint.
 """
 
 from __future__ import annotations
@@ -30,14 +37,10 @@ EXAMPLE_PROMPT = {
 
 # flag → (value that means "not used", slice of the port that brings it)
 LATER_SLICE_FLAGS = {
-    "ckpt_dir": (None, "the rest of the checkpoint-loader slice: the T5 and "
-                       "VAE converters (ROADMAP queue 1 item 0; the DiT "
-                       "loader is in, see cli.finetune --ckpt_dir)"),
     "ulysses_size": (1, "the multi-GPU sequence-parallel slice"),
     "ring_size": (1, "the multi-GPU sequence-parallel slice"),
     "dit_fsdp": (False, "the multi-GPU sequence-parallel slice"),
     "t5_fsdp": (False, "the multi-GPU sequence-parallel slice"),
-    "quant": (None, "the quantization (int8/int4/W8A8) slice"),
     "image": (None, "the i2v slice"),
     "use_prompt_extend": (False, "the apps-and-utilities slice"),
 }
@@ -87,8 +90,8 @@ def _parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default: cuda)")
     parser.add_argument("--ckpt_dir", type=str, default=None,
-                        help="checkpoint directory (not supported yet: "
-                             "random weights)")
+                        help="checkpoint directory in the reference layout "
+                             "(default: random weights)")
     parser.add_argument("--ulysses_size", type=int, default=1)
     parser.add_argument("--ring_size", type=int, default=1)
     parser.add_argument("--dit_fsdp", action="store_true", default=False)
@@ -110,7 +113,10 @@ def _parse_args(argv=None):
     parser.add_argument("--offload_model", type=str2bool, default=None,
                         help="compatibility flag (no-op)")
     parser.add_argument("--quant", type=str, default=None,
-                        choices=["int8", "int4", "w8a8"])
+                        choices=["int8", "int4", "w8a8"],
+                        help="int8/int4: weight-only block linears; w8a8: "
+                             "int8 weights and per-token int8 activations "
+                             "through the int8 GEMM kernel")
     parser.add_argument("--residual_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
                         help="DiT residual-stream dtype")
@@ -125,7 +131,8 @@ def generate(args) -> str:
     cfg = WAN_CONFIGS[args.task]
     logging.info("prompt: %s", args.prompt)
     pipe = WanT2V(config=cfg, residual_dtype=args.residual_dtype,
-                  device=args.device)
+                  device=args.device, checkpoint_dir=args.ckpt_dir,
+                  quant=args.quant)
     video = pipe.generate(
         args.prompt, size=SIZE_CONFIGS[args.size],
         frame_num=args.frame_num, shift=args.sample_shift,

@@ -1,5 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): async copies, ldmatrix and the bf16 mma.sync tile.
+// int8_gemm.cu takes the async copies and ldmatrix_x4 from here.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): in a C fragment a
 // thread with lane = 4 * g + t holds rows g and g + 8, columns 2t and

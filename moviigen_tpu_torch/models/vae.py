@@ -214,11 +214,38 @@ def _attn(gen, c, device):
                      "bias": torch.zeros(c, device=device)}}
 
 
+def _init_encoder(cfg: VAEConfig, gen, device) -> Params:
+    dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+    enc: Params = {"conv1": _conv(gen, 3, 3, 3, 3, dims[0], device)}
+    down = []
+    for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+        stage: Params = {"res": []}
+        c = cin
+        for _ in range(cfg.num_res_blocks):
+            stage["res"].append(_res(gen, c, cout, device))
+            c = cout
+        if i != len(cfg.dim_mult) - 1:
+            ds = {"conv": _conv2d(gen, 3, 3, cout, cout, device)}
+            if cfg.temporal_downsample[i]:
+                ds["time_conv"] = _conv(gen, 3, 1, 1, cout, cout, device)
+            stage["downsample"] = ds
+        down.append(stage)
+    enc.update(down=down,
+               mid_res1=_res(gen, dims[-1], dims[-1], device),
+               mid_attn=_attn(gen, dims[-1], device),
+               mid_res2=_res(gen, dims[-1], dims[-1], device),
+               head_norm=_gamma(dims[-1], device),
+               head_conv=_conv(gen, 3, 3, 3, dims[-1], 2 * cfg.z_dim, device))
+    return enc
+
+
 def init_params(cfg: VAEConfig, generator: torch.Generator,
-                device=None) -> Params:
-    """Random fp32 decoder parameters with the distributions and tree of
-    the JAX ``init_params`` (vae.py:321-395; the numbers differ). Only the
-    parts decoding runs are built: ``decoder`` and ``conv2``."""
+                device=None, encoder: bool = False) -> Params:
+    """Random fp32 parameters with the distributions and tree of the JAX
+    ``init_params`` (vae.py:321-395; the numbers differ). By default only
+    the parts decoding runs are built, ``decoder`` and ``conv2``;
+    ``encoder`` adds ``encoder`` and ``conv1``, for a tree that exports as
+    a whole reference checkpoint (``vae_convert.vae_state_dict``)."""
     gen = generator
     ddims = [cfg.dim * u for u in
              (cfg.dim_mult[-1],) + tuple(reversed(cfg.dim_mult))]
@@ -246,5 +273,10 @@ def init_params(cfg: VAEConfig, generator: torch.Generator,
         up.append(stage)
     dec.update(up=up, head_norm=_gamma(ddims[-1], device),
                head_conv=_conv(gen, 3, 3, 3, ddims[-1], 3, device))
-    return {"decoder": dec,
-            "conv2": _conv(gen, 1, 1, 1, cfg.z_dim, cfg.z_dim, device)}
+    params = {"decoder": dec,
+              "conv2": _conv(gen, 1, 1, 1, cfg.z_dim, cfg.z_dim, device)}
+    if encoder:
+        params["encoder"] = _init_encoder(cfg, gen, device)
+        params["conv1"] = _conv(gen, 1, 1, 1, 2 * cfg.z_dim, 2 * cfg.z_dim,
+                                device)
+    return params

@@ -3,9 +3,11 @@
 Counterpart of ``moviigen_tpu/models/wan_model.py`` (3D patch-embed →
 ``num_layers`` AdaLN-modulated blocks of 3D-RoPE self-attention, text
 cross-attention and a GELU-tanh FFN → 2-way-modulated head → unpatchify),
-without quantization and without the JAX memory streams. The blocks are
-one ``nn.Module`` each in an ``nn.ModuleList`` where the JAX package
-stacks them for ``lax.scan``.
+without the JAX memory streams. The blocks are one ``nn.Module`` each in
+an ``nn.ModuleList`` where the JAX package stacks them for ``lax.scan``.
+With ``quant`` (int8 | int4 | w8a8) the block linears are ``QuantLinear``s
+(``ops/quantization.py``); embeddings, modulations, norms and the head
+stay as they are.
 
 Precision follows the JAX forward: matmul inputs and weights are cast to
 ``compute_dtype``; time embedding, AdaLN modulation, norm statistics,
@@ -25,17 +27,61 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import WanModelConfig
 from ..ops.attention import attention
+from ..ops.int8_gemm import int8_gemm_fused
 from ..ops.norms import layer_norm, rms_norm
+from ..ops.quantization import QuantLinear, quantize_activations
 from ..ops.rope import RopeTables, rope_apply
 
+QUANT_MODES = (None, "int8", "int4", "w8a8")
 
-def _dense(lin: nn.Linear, x: torch.Tensor,
+# Above this many bytes of concatenated bf16 output the JAX ``_dense_multi``
+# computes its projections one by one (wan_model.py:226-253). Only the
+# W8A8 arithmetic depends on it here: below it the bias is added in fp32
+# before the cast, above it in the compute dtype after it.
+_FUSE_BYTES_LIMIT = 1 << 30
+
+
+def _dense(lin: nn.Module, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ W^T + b with x and the weights cast to ``dtype`` (default: the
-    weight dtype) — the JAX ``_dense`` (wan_model.py:174-223)."""
+    weight dtype) — the JAX ``_dense`` (wan_model.py:174-223). A
+    ``QuantLinear`` dequantizes its weight first or, marked W8A8, runs the
+    int8 GEMM."""
+    if isinstance(lin, QuantLinear):
+        return lin(x, dtype)
     cd = dtype or lin.weight.dtype
     bias = None if lin.bias is None else lin.bias.to(cd)
     return F.linear(x.to(cd), lin.weight.to(cd), bias)
+
+
+def _dense_multi(lins, x: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None):
+    """Several projections of the same input — the JAX ``_dense_multi``
+    (wan_model.py:234-295). Per output column the arithmetic is
+    ``_dense``'s, except for W8A8 linears under the fuse limit: the input
+    is quantized once for the group, and each GEMM adds its bias in fp32
+    before the cast. The projections stay separate GEMMs sharing the
+    quantized input (the JAX package concatenates the weights to widen
+    the product; per column that is the same sum)."""
+    tokens = x.numel() // x.shape[-1]
+    total_out = sum(lin.out_features for lin in lins)
+    if (2 * tokens * total_out > _FUSE_BYTES_LIMIT
+            or not all(isinstance(lin, QuantLinear) and lin.act8
+                       for lin in lins)):
+        return [_dense(lin, x, dtype) for lin in lins]
+    cd = dtype or torch.bfloat16
+    xq, sx = quantize_activations(x)
+    xq, sx = xq.reshape(tokens, -1), sx.reshape(tokens)
+    return [int8_gemm_fused(xq, lin.qweight, sx, lin.scale, lin.bias,
+                            out_dtype=cd).reshape(*x.shape[:-1], -1)
+            for lin in lins]
+
+
+def _block_linear(cin: int, cout: int, dtype, device, quant) -> nn.Module:
+    if quant is None:
+        return nn.Linear(cin, cout, dtype=dtype, device=device)
+    return QuantLinear(cin, cout, bits=4 if quant == "int4" else 8,
+                       act8=quant == "w8a8", dtype=dtype, device=device)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -76,14 +122,11 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
 class Attention(nn.Module):
     """q/k/v/o projections with full-dim RMS qk-norm scales (fp32)."""
 
-    def __init__(self, cfg: WanModelConfig, dtype, device):
+    def __init__(self, cfg: WanModelConfig, dtype, device, quant=None):
         super().__init__()
         d = cfg.dim
-        kw = dict(dtype=dtype, device=device)
-        self.q = nn.Linear(d, d, **kw)
-        self.k = nn.Linear(d, d, **kw)
-        self.v = nn.Linear(d, d, **kw)
-        self.o = nn.Linear(d, d, **kw)
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, _block_linear(d, d, dtype, device, quant))
         self.norm_q = self.norm_k = None
         if cfg.qk_norm:
             self.norm_q = nn.Parameter(
@@ -95,14 +138,14 @@ class Attention(nn.Module):
 class WanAttentionBlock(nn.Module):
     """One AdaLN block (ref WanAttentionBlock, model.py:229-313)."""
 
-    def __init__(self, cfg: WanModelConfig, dtype, device):
+    def __init__(self, cfg: WanModelConfig, dtype, device, quant=None):
         super().__init__()
         d = cfg.dim
         self.cfg = cfg
-        self.self_attn = Attention(cfg, dtype, device)
-        self.cross_attn = Attention(cfg, dtype, device)
-        self.ffn_fc1 = nn.Linear(d, cfg.ffn_dim, dtype=dtype, device=device)
-        self.ffn_fc2 = nn.Linear(cfg.ffn_dim, d, dtype=dtype, device=device)
+        self.self_attn = Attention(cfg, dtype, device, quant)
+        self.cross_attn = Attention(cfg, dtype, device, quant)
+        self.ffn_fc1 = _block_linear(d, cfg.ffn_dim, dtype, device, quant)
+        self.ffn_fc2 = _block_linear(cfg.ffn_dim, d, dtype, device, quant)
         self.modulation = nn.Parameter(
             torch.empty(6, d, dtype=torch.float32, device=device))
         self.norm3_weight = self.norm3_bias = None
@@ -119,7 +162,7 @@ class WanAttentionBlock(nn.Module):
     def self_attention(self, xm, rope, k_lens, cd, backend):
         """ref WanSelfAttention (model.py:102-156)."""
         p, cfg = self.self_attn, self.cfg
-        q, k, v = _dense(p.q, xm, cd), _dense(p.k, xm, cd), _dense(p.v, xm, cd)
+        q, k, v = _dense_multi([p.q, p.k, p.v], xm, cd)
         if cfg.qk_norm:
             q = rms_norm(q, p.norm_q, eps=cfg.eps)
             k = rms_norm(k, p.norm_k, eps=cfg.eps)
@@ -134,7 +177,7 @@ class WanAttentionBlock(nn.Module):
         """ref WanT2VCrossAttention (model.py:159-181): no key mask, so the
         zero-padded text tokens are attended to, as in the JAX forward."""
         p, cfg = self.cross_attn, self.cfg
-        k, v = _dense(p.k, context, cd), _dense(p.v, context, cd)
+        k, v = _dense_multi([p.k, p.v], context, cd)
         q = _dense(p.q, xn, cd)
         if cfg.qk_norm:
             k = rms_norm(k, p.norm_k, eps=cfg.eps)
@@ -180,11 +223,13 @@ class WanModel(nn.Module):
     the JAX ``init_params``."""
 
     def __init__(self, cfg: WanModelConfig, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, quant: Optional[str] = None):
         super().__init__()
         if cfg.model_type != "t2v":
             raise NotImplementedError(
                 "the port's DiT covers t2v; i2v comes with a later slice")
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be int8|int4|w8a8, got {quant!r}")
         self.cfg = cfg
         d = cfg.dim
         f32 = dict(dtype=torch.float32, device=device)
@@ -197,7 +242,7 @@ class WanModel(nn.Module):
         self.time_embedding_fc2 = nn.Linear(d, d, **f32)
         self.time_projection = nn.Linear(d, 6 * d, **f32)
         self.blocks = nn.ModuleList(
-            WanAttentionBlock(cfg, dtype, device)
+            WanAttentionBlock(cfg, dtype, device, quant)
             for _ in range(cfg.num_layers))
         self.head = nn.Linear(d, math.prod(cfg.patch_size) * cfg.out_dim,
                               **f32)
@@ -208,7 +253,8 @@ class WanModel(nn.Module):
         """Random init with the distributions of the JAX ``init_params``
         (wan_model.py:69-152; the numbers differ): xavier-uniform linears
         with zero bias, std-0.02 normal text/time embeddings, randn/√dim
-        modulations, a zero head."""
+        modulations, a zero head. Quantized block linears get random
+        codes (``QuantLinear.init_random``)."""
         d = self.cfg.dim
 
         def xavier(lin):
@@ -223,6 +269,8 @@ class WanModel(nn.Module):
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 xavier(mod)
+            elif isinstance(mod, QuantLinear):
+                mod.init_random(generator)
         for lin in (self.text_embedding_fc1, self.text_embedding_fc2,
                     self.time_embedding_fc1, self.time_embedding_fc2):
             normal(lin)

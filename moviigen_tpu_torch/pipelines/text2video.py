@@ -5,12 +5,23 @@ Counterpart of ``moviigen_tpu/pipelines/text2video.py::WanT2V`` (ref
 denoise loop around the DiT with UniPC (default) or DPM++, and the causal
 3D VAE decode. Everything lives on one device; the 14B DiT (28 GB bf16),
 the umT5-XXL encoder (11.6 GB) and the VAE fit one 80 GB card together,
-so nothing is offloaded. Weights are random (made from ``init_seed``) or
-carried from a JAX parameter tree with ``convert``.
+so nothing is offloaded, quantized or not. Weights are random (made from
+``init_seed``), read from a checkpoint directory in the reference layout
+(``checkpoint_dir``), or carried from a JAX parameter tree with
+``convert``.
+
+``quant`` (int8 | int4 | w8a8) quantizes the DiT's block linears and,
+for an encoder above ``_T5_OFFLOAD_BYTES``, the umT5 weight-only. With a
+checkpoint directory the quantized trees are cached beside the
+checkpoint as safetensors in the JAX package's layout and names, with a
+fingerprint of the source files, and later starts load the cache;
+prompt embeddings are cached there too.
 """
 
 from __future__ import annotations
 
+import fnmatch
+import hashlib
 import logging
 import math
 import os
@@ -23,16 +34,30 @@ import torch
 from ..configs import PipelineConfig
 from ..diffusion import (FlowDPMSolverMultistepScheduler,
                          FlowUniPCMultistepScheduler, get_sampling_sigmas)
+from ..convert import (load_t5_params, load_wan_params, t5_params_tree,
+                       wan_params_tree)
 from ..models import vae as vaem
-from ..models.t5 import T5Encoder
+from ..models.t5 import T5Encoder, load_t5_checkpoint
 from ..models.tokenizer import load_tokenizer
+from ..models.vae_convert import load_vae_checkpoint
 from ..models.vae_streaming import decode_streaming
-from ..models.wan_model import WanModel
+from ..models.wan_convert import SHARD_PATTERN, load_wan_checkpoint
+from ..models.wan_model import QUANT_MODES, WanModel
+from ..ops.quantization import (load_quantized_checkpoint,
+                                quantize_t5_params, quantize_wan_params,
+                                read_quantized_metadata,
+                                save_quantized_checkpoint)
 from ..ops.rope import rope_3d_freqs
 
 # Output pixels (frames × H × W) above which the decode streams over
 # latent-frame chunks instead of decoding the clip as one tensor.
 STREAMING_DECODE_PIXELS = 2 ** 24
+
+# In the quant modes a umT5 whose bf16 weights pass this size is quantized
+# weight-only with the DiT (the JAX pipeline's rule, text2video.py:268-272;
+# there a smaller encoder also decides host offload, which the port does
+# not do). Tests lower it to reach the path at the tiny config.
+_T5_OFFLOAD_BYTES = 4 << 30
 
 
 def resolve_device(device=None) -> torch.device:
@@ -81,44 +106,189 @@ class WanT2V:
     def __init__(self, config: PipelineConfig, init_seed: int = 0,
                  attn_backend: str = "auto",
                  residual_dtype: str = "float32", device=None,
-                 checkpoint_dir=None):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "WanT2V(checkpoint_dir=...) needs the T5 and VAE converters "
-                "(ROADMAP queue 1 item 0); the port loads the DiT alone "
-                "(models.wan_convert.load_wan_checkpoint)")
+                 checkpoint_dir: Optional[str] = None,
+                 quant: Optional[str] = None, prompt_cache: bool = True):
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be int8|int4|w8a8, got {quant!r}")
         if residual_dtype not in ("float32", "bfloat16"):
             raise ValueError("residual_dtype must be float32|bfloat16, "
                              f"got {residual_dtype!r}")
         self.device = resolve_device(device)
         self.config = config
+        self.quant = quant
         self.attn_backend = attn_backend
         self.residual_dtype = getattr(torch, residual_dtype)
         self.sample_neg_prompt = config.sample_neg_prompt
         self.timings = {}
 
-        logging.warning("random-init params from seed %d (no checkpoint "
-                        "loader in the port yet)", init_seed)
-        gen = torch.Generator(device=self.device).manual_seed(init_seed)
+        tc = config.t5
+        t5_bytes = 2 * (tc.vocab_size * tc.dim + tc.num_layers * (
+            3 * tc.dim * tc.dim_attn + tc.dim_attn * tc.dim
+            + 3 * tc.dim * tc.dim_ffn))
+        self._quant_t5 = quant is not None and t5_bytes > _T5_OFFLOAD_BYTES
+        t5_bits = (4 if quant == "int4" else 8) if self._quant_t5 else None
+        t5_dtype = getattr(torch, config.t5_dtype)
+        dtype = config.torch_param_dtype
+        dev = self.device
+
         with torch.no_grad():
-            self.t5 = T5Encoder(config.t5, dtype=getattr(torch, config.t5_dtype),
-                                device=self.device).init_weights(gen).eval()
-            self.vae_params = vaem.init_params(config.vae, gen,
-                                               device=self.device)
-            self.dit = WanModel(config.model, dtype=config.torch_param_dtype,
-                                device=self.device).init_weights(gen).eval()
+            if checkpoint_dir is not None:
+                self._load_checkpoint(checkpoint_dir, t5_bits, t5_dtype, dtype)
+                tok_path = os.path.join(checkpoint_dir, config.t5_tokenizer)
+            else:
+                logging.warning("no checkpoint_dir: random-init params from "
+                                "seed %d", init_seed)
+                gen = torch.Generator(device=dev).manual_seed(init_seed)
+                self.t5 = T5Encoder(config.t5, dtype=t5_dtype, device=dev,
+                                    quant_bits=t5_bits).init_weights(gen)
+                self.vae_params = vaem.init_params(config.vae, gen, device=dev)
+                self.dit = WanModel(config.model, dtype=dtype, device=dev,
+                                    quant=quant).init_weights(gen)
+                tok_path = config.t5_tokenizer
+        self.t5.eval()
+        self.dit.eval()
         self.tokenizer = load_tokenizer(
-            config.t5_tokenizer, seq_len=config.model.text_len,
+            tok_path, seq_len=config.model.text_len,
             clean="whitespace", vocab_size=config.t5.vocab_size)
 
+        # Prompt-embedding cache beside the checkpoint: repeated prompts
+        # (validation sets, retries, the CFG negative prompt) skip the
+        # encoder.
+        self._prompt_cache_dir = None
+        if prompt_cache and checkpoint_dir is not None:
+            self._prompt_cache_dir = os.path.join(
+                checkpoint_dir, "moviigen_prompt_cache")
+            t5_src = os.path.join(checkpoint_dir, config.t5_checkpoint)
+            self._prompt_cache_tag = (
+                f"{self._source_fingerprint([t5_src])};"
+                f"quant={quant if self._quant_t5 else None};"
+                f"len={config.model.text_len};"
+                f"tok={type(self.tokenizer).__name__}")
+
+    def _load_checkpoint(self, checkpoint_dir, t5_bits, t5_dtype, dtype):
+        """The three models from a checkpoint directory in the reference
+        layout; quantized ones through their cache."""
+        config, quant, dev = self.config, self.quant, self.device
+        logging.info("loading checkpoints from %s", checkpoint_dir)
+        t5_path = os.path.join(checkpoint_dir, config.t5_checkpoint)
+        if t5_bits is not None:
+            tree = self._quantized_with_cache(
+                checkpoint_dir, f"t5_{quant}",
+                lambda: t5_params_tree(quantize_t5_params(
+                    load_t5_checkpoint(t5_path, config.t5, t5_dtype, dev),
+                    bits=t5_bits)),
+                sources=[t5_path], device=dev)
+            self.t5 = load_t5_params(
+                T5Encoder(config.t5, dtype=t5_dtype, device=dev,
+                          quant_bits=t5_bits), tree)
+        else:
+            self.t5 = load_t5_checkpoint(t5_path, config.t5, t5_dtype, dev)
+        self.vae_params = load_vae_checkpoint(
+            os.path.join(checkpoint_dir, config.vae_checkpoint), config.vae,
+            torch.float32, dev)
+        if quant is None:
+            self.dit = load_wan_checkpoint(checkpoint_dir, config.model,
+                                           dtype, dev)
+            return
+        # quantize once (the full-precision DiT is loaded to the device and
+        # quantized there, one linear at a time), cache the compact tree
+        # beside the checkpoint; later starts read only the cache
+        shards = [os.path.join(checkpoint_dir, f)
+                  for f in os.listdir(checkpoint_dir)
+                  if fnmatch.fnmatch(f, SHARD_PATTERN)]
+        tree = self._quantized_with_cache(
+            checkpoint_dir, f"dit_{quant}",
+            lambda: wan_params_tree(quantize_wan_params(
+                load_wan_checkpoint(checkpoint_dir, config.model, dtype, dev),
+                bits=4 if quant == "int4" else 8, act8=quant == "w8a8")),
+            sources=shards, device=dev)
+        self.dit = load_wan_params(
+            WanModel(config.model, dtype=dtype, device=dev, quant=quant),
+            tree)
+
+    @staticmethod
+    def _source_fingerprint(sources) -> str:
+        """Cheap identity of the full-precision source files: name, byte
+        size and mtime of each (no content hash: a 28 GB read per start
+        would defeat the cache)."""
+        parts = []
+        for s in sorted(sources):
+            try:
+                st = os.stat(s)
+                parts.append(
+                    f"{os.path.basename(s)}:{st.st_size}:{st.st_mtime_ns}")
+            except OSError:
+                parts.append(f"{os.path.basename(s)}:missing")
+        return ";".join(parts)
+
+    @staticmethod
+    def _quantized_with_cache(checkpoint_dir: str, tag: str, build,
+                              sources=(), device=None):
+        """The cached quantized tree ``moviigen_quant_<tag>.safetensors``
+        beside the checkpoint, or ``build()`` and cache it. The cache's
+        header records a fingerprint of the source files; on a mismatch
+        the stale cache is rebuilt, not served. A cache that cannot be
+        written (read-only directory) costs a quantization per start."""
+        cache = os.path.join(checkpoint_dir,
+                             f"moviigen_quant_{tag}.safetensors")
+        fp = WanT2V._source_fingerprint(sources)
+        if os.path.exists(cache):
+            try:
+                meta = read_quantized_metadata(cache)
+            except (OSError, ValueError):  # unreadable header: stale
+                meta = {}
+            if meta.get("source_fingerprint", fp) == fp:
+                logging.info("loading quantized cache %s", cache)
+                return load_quantized_checkpoint(cache, device)
+            logging.warning("quantized cache %s is stale (source checkpoint "
+                            "changed); rebuilding", cache)
+        tree = build()
+        try:
+            save_quantized_checkpoint(
+                cache, tree, metadata={"source_fingerprint": fp, "tag": tag})
+            logging.info("wrote quantized cache %s", cache)
+        except OSError as e:  # the cache is best-effort
+            logging.warning("could not write quantized cache: %s", e)
+        return tree
+
     # ------------------------------------------------------------------
+
+    def _prompt_cache_path(self, text: str) -> Optional[str]:
+        if self._prompt_cache_dir is None:
+            return None
+        h = hashlib.sha256(
+            f"{self._prompt_cache_tag}\x00{text}".encode()).hexdigest()
+        return os.path.join(self._prompt_cache_dir, f"{h[:32]}.npz")
 
     @torch.no_grad()
     def encode_text(self, texts) -> torch.Tensor:
         """Prompt(s) → [B, text_len, t5_dim], exact zeros past each true
-        length (ref t5.py:516-518 + model.py:549-554)."""
+        length (ref t5.py:516-518 + model.py:549-554). With a checkpoint
+        directory the embeddings are cached there per (prompt, T5 file
+        fingerprint, quant mode); a hit on the whole batch skips the
+        encoder."""
         if isinstance(texts, str):
             texts = [texts]
+        paths = [self._prompt_cache_path(t) for t in texts]
+        if all(p is not None and os.path.exists(p) for p in paths):
+            loaded = [np.load(p) for p in paths]
+            logging.info("prompt-embedding cache hit (%d prompt(s))",
+                         len(loaded))
+            ctx = torch.from_numpy(np.stack([z["ctx"] for z in loaded]))
+            return ctx.to(self.device, getattr(torch, str(loaded[0]["dtype"])))
+        ctx = self._encode_text_uncached(texts)
+        if self._prompt_cache_dir is not None:
+            try:
+                os.makedirs(self._prompt_cache_dir, exist_ok=True)
+                host = ctx.float().cpu().numpy()  # bf16 → fp32 is exact
+                for p, row in zip(paths, host):
+                    np.savez(p, ctx=row,
+                             dtype=str(ctx.dtype).replace("torch.", ""))
+            except OSError as e:  # read-only checkpoint dir: best-effort
+                logging.warning("could not write prompt cache: %s", e)
+        return ctx
+
+    def _encode_text_uncached(self, texts) -> torch.Tensor:
         ids, mask = self.tokenizer(texts, return_mask=True,
                                    add_special_tokens=True)
         ids = torch.as_tensor(np.asarray(ids), dtype=torch.long,

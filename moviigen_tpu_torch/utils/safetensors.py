@@ -5,8 +5,8 @@ The format (public, https://github.com/huggingface/safetensors): an
 8-byte little-endian header length n, n bytes of JSON mapping each tensor
 name to ``{"dtype", "shape", "data_offsets": [begin, end]}`` (offsets
 into the data that follows the header) plus an optional
-``"__metadata__"`` dict of strings (skipped by the reader; the writer
-writes none), then the raw little-endian tensor bytes. The writer pads
+``"__metadata__"`` dict of strings (``read_metadata``; the writer takes
+one), then the raw little-endian tensor bytes. The writer pads
 the header with spaces to a multiple of 8 bytes, as the reference writer
 does, and lays the tensors out in name order.
 
@@ -21,7 +21,7 @@ import json
 import os
 import struct
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -31,6 +31,8 @@ DTYPES = {
     "F16": torch.float16,
     "I32": torch.int32,
     "I64": torch.int64,
+    "I8": torch.int8,
+    "U8": torch.uint8,
 }
 _NAMES = {dt: name for name, dt in DTYPES.items()}
 
@@ -47,6 +49,13 @@ def _read_header(f) -> tuple:
     (n,) = struct.unpack("<Q", raw)
     header = json.loads(f.read(n).decode("utf-8"))
     return header, 8 + n
+
+
+def read_metadata(path: str) -> Dict[str, str]:
+    """The header's ``__metadata__`` strings (empty if the file has none)."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f)
+    return dict(header.get("__metadata__") or {})
 
 
 def load_file(path: str, device=None) -> Dict[str, torch.Tensor]:
@@ -81,10 +90,13 @@ def load_file(path: str, device=None) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_file(tensors: Dict[str, torch.Tensor], path: str) -> None:
-    """Write ``tensors`` (any device; dtypes F32, BF16, F16, I32, I64) to
-    ``path``."""
+def save_file(tensors: Dict[str, torch.Tensor], path: str,
+              metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write ``tensors`` (any device; dtypes as ``DTYPES``) to ``path``,
+    with ``metadata`` (str → str) in the header."""
     header: Dict[str, object] = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     names = sorted(tensors)
     offset = 0
     for name in names:

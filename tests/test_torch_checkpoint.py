@@ -194,15 +194,136 @@ def test_loader_reads_bf16_shards(tmp_path):
 
 
 def test_refusals_name_the_remaining_loaders(tmp_path):
+    """Every loader is in: a directory without the files raises for the
+    first one missing, by name."""
     from moviigen_tpu_torch.cli.generate import main as generate_main
     from moviigen_tpu_torch.pipelines.text2video import WanT2V
 
-    with pytest.raises(NotImplementedError, match="T5 and VAE"):
+    with pytest.raises(FileNotFoundError, match="models_t5_umt5-xxl"):
         WanT2V(WAN_CONFIGS["t2v-tiny"], device="cpu",
                checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="T5 and VAE"):
+    with pytest.raises(FileNotFoundError, match="models_t5_umt5-xxl"):
         generate_main(["--task", "t2v-tiny", "--device", "cpu",
                        "--size", "832*480", "--ckpt_dir", str(tmp_path)])
+
+
+# ------------------------------------------------------ T5 and VAE layout
+
+
+def _assert_tree_equals_jax(got, want, path=""):
+    """The port's tree against the JAX tree: same nesting; conv ``weight``
+    leaves are the JAX ``kernel`` in PyTorch layout."""
+    if isinstance(want, dict):
+        assert {("weight" if k == "kernel" else k) for k in want} == set(got)
+        for k, v in want.items():
+            _assert_tree_equals_jax(got["weight" if k == "kernel" else k], v,
+                                    f"{path}/{k}")
+        return
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_tree_equals_jax(g, w, f"{path}/{i}")
+        return
+    w = np.asarray(want)
+    if path.endswith("/kernel"):
+        w = w.transpose((4, 3, 0, 1, 2) if w.ndim == 5 else (3, 2, 0, 1))
+    np.testing.assert_array_equal(got.numpy(), w, err_msg=path)
+
+
+def test_t5_checkpoint_converters_agree(tmp_path):
+    """A random reference-layout encoder state dict (written by the
+    port) through both packages' converters gives equal parameters, and
+    both refuse a stray key."""
+    from moviigen_tpu.models import t5 as jt5
+    from moviigen_tpu_torch.convert import t5_params_tree
+    from moviigen_tpu_torch.models import t5 as tt5
+
+    cfg, jcfg = WAN_CONFIGS["t2v-tiny"].t5, JAX_CONFIGS["t2v-tiny"].t5
+    src = tt5.T5Encoder(cfg, dtype=torch.float32).init_weights(
+        torch.Generator().manual_seed(0))
+    sd = tt5.t5_state_dict(src)
+    assert set(sd) == tt5.expected_t5_encoder_keys(cfg) \
+        == jt5.expected_t5_encoder_keys(jcfg)
+    path = str(tmp_path / "t5.pth")
+    torch.save(sd, path)
+    want = jt5.load_t5_checkpoint(path, jcfg, dtype=jnp.float32,
+                                  as_numpy=True)
+    got = tt5.load_t5_checkpoint(path, cfg, dtype=torch.float32)
+    tree = t5_params_tree(got)
+    flat_w = jax.tree_util.tree_leaves_with_path(want)
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(
+        jax.tree_util.tree_map(lambda t: t.numpy(), tree)))
+    assert len(flat_w) == len(flat_g)
+    for key, w in flat_w:
+        np.testing.assert_array_equal(flat_g[key], w, err_msg=str(key))
+    bf16 = tt5.load_t5_checkpoint(path, cfg)  # serving's dtype
+    assert bf16.blocks[0].q.weight.dtype == torch.bfloat16
+    assert bf16.blocks[0].pos_embedding.dtype == torch.float32
+
+    stray = dict(sd, **{"blocks.0.attn.extra.weight": torch.zeros(2)})
+    with pytest.raises(ValueError, match="not consumed"):
+        tt5.load_t5_state_dict(tt5.T5Encoder(cfg, dtype=torch.float32), stray)
+    with pytest.raises(ValueError, match="not consumed"):
+        jt5.convert_t5_state_dict({k: v.numpy() for k, v in stray.items()},
+                                  jcfg, as_numpy=True)
+    del sd["norm.weight"]
+    with pytest.raises(KeyError, match="norm.weight"):
+        tt5.load_t5_state_dict(tt5.T5Encoder(cfg, dtype=torch.float32), sd)
+
+
+def test_vae_checkpoint_converters_agree(tmp_path):
+    """The same for the VAE, encoder included: the port's random tree
+    exported in the reference layout, through both converters."""
+    from moviigen_tpu.models import vae_convert as jvc
+    from moviigen_tpu_torch.models import vae as tvae
+    from moviigen_tpu_torch.models import vae_convert as tvc
+
+    cfg, jcfg = WAN_CONFIGS["t2v-tiny"].vae, JAX_CONFIGS["t2v-tiny"].vae
+    src = tvae.init_params(cfg, torch.Generator().manual_seed(0),
+                           encoder=True)
+    sd = tvc.vae_state_dict(src, cfg)
+    assert set(sd) == tvc.expected_vae_keys(cfg) == jvc.expected_vae_keys(jcfg)
+    assert sd["decoder.head.0.gamma"].shape == (cfg.dim, 1, 1, 1)
+    assert sd["decoder.middle.1.norm.gamma"].dim() == 3
+    path = str(tmp_path / "vae.pth")
+    torch.save(sd, path)
+    want = jax.tree_util.tree_map(
+        np.asarray, jvc.load_vae_checkpoint(path, jcfg))
+    got = tvc.load_vae_checkpoint(path, cfg)
+    _assert_tree_equals_jax(got, want)
+    z = torch.randn(1, cfg.z_dim, 2, 4, 4,
+                    generator=torch.Generator().manual_seed(1))
+    assert torch.equal(tvae.decode(got, z, cfg), tvae.decode(src, z, cfg))
+
+    stray = dict(sd, **{"decoder.extra.weight": torch.zeros(2)})
+    with pytest.raises(ValueError, match="not consumed"):
+        tvc.convert_vae_state_dict(stray, cfg)
+    with pytest.raises(ValueError, match="not consumed"):
+        jvc.convert_vae_state_dict({k: v.numpy() for k, v in stray.items()},
+                                   jcfg)
+    del sd["conv2.bias"]
+    with pytest.raises(KeyError, match="conv2.bias"):
+        tvc.convert_vae_state_dict(sd, cfg)
+
+
+def test_safetensors_int8_and_metadata(tmp_path):
+    """The dtypes of the quantized caches and the header metadata, both
+    ways with the ``safetensors`` package."""
+    from safetensors import safe_open
+
+    want = {"q8": torch.randint(-127, 128, (5, 3), dtype=torch.int8),
+            "q4": torch.randint(0, 256, (4, 2), dtype=torch.uint8)}
+    meta = {"source_fingerprint": "x:1:2", "tag": "dit_int8"}
+    ours, theirs = str(tmp_path / "a.st"), str(tmp_path / "b.st")
+    tst.save_file(want, ours, metadata=meta)
+    _equal(st_load(ours), want)
+    with safe_open(ours, framework="pt") as f:
+        assert f.metadata() == meta
+    st_save(want, theirs, metadata=meta)
+    _equal(tst.load_file(theirs), want)
+    assert tst.read_metadata(theirs) == meta
+    tst.save_file(want, ours)
+    assert tst.read_metadata(ours) == {}
 
 
 # ------------------------------------------------------------ checkpoints

@@ -30,7 +30,8 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("ops.flash_attention", "utils.safetensors", "models.census",
                 "models.wan_convert", "diffusion.flow_match", "training",
                 "training.train_step", "training.data",
-                "training.checkpoint", "cli.finetune"):
+                "training.checkpoint", "cli.finetune", "ops.quantization",
+                "ops.int8_gemm", "models.vae_convert"):
         assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

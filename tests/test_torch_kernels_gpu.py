@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from moviigen_tpu_torch.ops import flash_attention as tfa
+from moviigen_tpu_torch.ops import int8_gemm as tig
 from moviigen_tpu_torch.ops.attention import attention
+from moviigen_tpu_torch.ops.quantization import QuantLinear
 
 pytestmark = pytest.mark.gpu
 
@@ -169,3 +171,82 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_attention_stats_cuda(q, q, q)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.flash_bwd_cuda(q, q, q, None, q, m, m, q)
+
+
+# ------------------------------------------------------------- int8 GEMM
+
+# (M, K, N): ragged row tiles, a K tail shorter than one 128-byte slice, an
+# N tail shorter than one 128-column tile, a single row, ±127 everywhere
+INT8_SHAPES = [(1000, 512, 384), (129, 80, 136), (1, 5120, 5120),
+               (300, 13824, 256), (7, 48, 24)]
+
+
+def _int8_operands(gen, m, k, n, extreme=False):
+    lo, hi = (126, 128) if extreme else (-127, 128)
+    xq = torch.randint(lo, hi, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(lo, hi, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 1e-3
+    sw = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-4
+    bias = torch.randn(n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    return xq, wq, sx, sw, bias
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_gemm_kernel_equals_plain(cuda, m, k, n, out_dtype, with_bias):
+    """Bit for bit: the int32 sum is exact and the epilogue rounds each
+    fp32 operation on its own, as the plain version's eager ops do."""
+    xq, wq, sx, sw, bias = _int8_operands(cuda, m, k, n)
+    bias = bias if with_bias else None
+    before = tig.int8_gemm_fused.launches
+    got = tig.int8_gemm_fused(xq, wq, sx, sw, bias, out_dtype=out_dtype)
+    assert tig.int8_gemm_fused.launches == before + 1
+    want = tig.int8_gemm_plain(xq, wq, sx, sw, bias, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+def test_int8_gemm_kernel_exact_where_fp32_sums_are_not(cuda):
+    """K = 5120 of 127·127 products: the sum passes 2²⁴, which an fp32
+    accumulation rounds; the kernel's int32 does not."""
+    xq, wq, sx, sw, _ = _int8_operands(cuda, 64, 5120, 64, extreme=True)
+    one_m, one_n = torch.ones_like(sx), torch.ones_like(sw)
+    got = tig.int8_gemm_fused(xq, wq, one_m, one_n, out_dtype=torch.float32)
+    exact = torch.matmul(xq.double(), wq.double().t())
+    assert float(exact.abs().max()) > 2 ** 24
+    assert torch.equal(got, exact.float())
+    assert torch.equal(tig.int8_matmul(xq, wq).double(), exact)
+
+
+def test_w8a8_linear_on_cuda_goes_through_the_kernel(cuda):
+    lin = QuantLinear(256, 384, act8=True, device="cuda")
+    lin.init_random(cuda)
+    lin.bias.normal_(generator=cuda)
+    x = torch.randn(2, 77, 256, generator=cuda, device="cuda",
+                    dtype=torch.bfloat16)
+    before = tig.int8_gemm_fused.launches
+    got = lin(x, torch.bfloat16)
+    assert tig.int8_gemm_fused.launches == before + 1
+    xq, sx = tig.quantize_activations(x)
+    want = tig.int8_gemm_plain(xq.reshape(-1, 256), lin.qweight, sx, lin.scale
+                               ).reshape(2, 77, 384) + lin.bias
+    assert torch.equal(got, want)
+
+
+def test_int8_gemm_kernel_refuses_what_it_does_not_take(cuda):
+    xq, wq, sx, sw, _ = _int8_operands(cuda, 16, 40, 24)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tig.int8_gemm_fused(xq, wq, sx, sw)
+    xq, wq, sx, sw, _ = _int8_operands(cuda, 16, 48, 20)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tig.int8_gemm_fused(xq, wq, sx, sw)
+    xq, wq, sx, sw, _ = _int8_operands(cuda, 16, 48, 24)
+    with pytest.raises(TypeError, match="int8"):
+        tig.int8_gemm_fused(xq.float(), wq, sx, sw)
+    with pytest.raises(TypeError, match="out_dtype"):
+        tig.int8_gemm_fused(xq, wq, sx, sw, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="not on"):
+        tig.int8_gemm_fused(xq, wq.cpu(), sx, sw)

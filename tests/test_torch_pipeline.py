@@ -83,8 +83,9 @@ def test_cli_writes_a_file(tmp_path):
     assert out is not None and os.path.exists(out)
 
 
-@pytest.mark.parametrize("flag", [["--ckpt_dir", "."], ["--ulysses_size", "2"],
-                                  ["--quant", "int8"], ["--dit_fsdp"]])
+@pytest.mark.parametrize("flag", [["--ring_size", "2"],
+                                  ["--ulysses_size", "2"],
+                                  ["--t5_fsdp"], ["--dit_fsdp"]])
 def test_cli_refuses_later_slice_flags(flag):
     with pytest.raises(NotImplementedError, match="slice"):
         cli.main(["--task", "t2v-tiny", "--device", "cpu", *flag])
