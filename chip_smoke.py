@@ -87,7 +87,9 @@ FLASH_REL_TOL = 1e-2
 
 # Training shapes at t2v-1.3B (12 heads x 128): 480*832 at 21 latent
 # frames -> 32,760 tokens, the finetune CLI's default; the 512-token text
-# cross-attention; and B=2 at 7,800 tokens with a key mask.
+# cross-attention; B=2 at 7,800 tokens with a key mask; the cross-attention
+# at 7,800 queries, where the dKV query loop is split as at 32,760; and a
+# ragged shape whose k_lens falls inside a key tile.
 TRAIN_HEADS = 12
 TRAIN_CASES = [
     # name, kind, B, Lq, Lk, k_lens as fractions of Lk (None = no mask)
@@ -95,6 +97,8 @@ TRAIN_CASES = [
     ("h_bwd_self_B1_L32760", "bwd", 1, 32760, 32760, None),
     ("i_bwd_cross_B1_Lq32760_Lk512", "bwd", 1, 32760, 512, None),
     ("j_bwd_klens_B2_L7800", "bwd", 2, 7800, 7800, (1.0, 0.6)),
+    ("k_bwd_cross_B1_Lq7800_Lk512", "bwd", 1, 7800, 512, None),
+    ("l_bwd_ragged_B2_Lq5000_Lk1000", "bwd", 2, 5000, 1000, (1.0, 0.333)),
 ]
 # Stats forward: out as FLASH_REL_TOL; m and l are fp32 sums of the same
 # bf16 products in another order (~1e-6 relative), held to the same bound.
@@ -147,6 +151,30 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def clocks_under_load(fn, ms, samples=5):
+    """(median SM clock in MHz, median power draw in W) as ``nvidia-smi``
+    reads them while ``fn`` (``ms`` milliseconds a call) runs back to back
+    for about three seconds: whether a kernel runs into the card's power
+    limit, and at which clock its share of the peak should be read."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(max(int(3000 / ms), samples)):
+        fn()
+    rows = []
+    for _ in range(samples + 1):
+        time.sleep(0.3)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0]
+        rows.append(tuple(float(x) for x in out.split(",")))
+    torch.cuda.synchronize()
+    rows = rows[1:]  # the first reading still averages over the idle card
+    return (statistics.median(r[0] for r in rows),
+            statistics.median(r[1] for r in rows))
 
 
 def _bound(flops, nbytes, peak_ops=PEAK_BF16_FLOPS):
@@ -361,6 +389,7 @@ def train_kernel_cases(report):
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 ot, (qt, kt, vt), dot, retain_graph=True))
             row.update(
+                dkv_query_splits=fa.dkv_query_splits(b, TRAIN_HEADS, lq, lk),
                 rel_err={w: e[1] for w, e in errs.items()},
                 max_abs_err={w: e[0] for w, e in errs.items()},
                 dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
@@ -369,6 +398,15 @@ def train_kernel_cases(report):
                 library_ms=lib_ms, library="SDPA backward (dq, dk, dv)",
                 dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
                 dq_bound_ms=dq_b, dq_bound_by=dq_by)
+            if name.startswith("h_"):  # the main shape: clocks and power
+                for key, fn in (("dkv", fa.flash_bwd_dkv_cuda),
+                                ("dq", fa.flash_bwd_dq_cuda)):
+                    mhz, watts = clocks_under_load(lambda: fn(ops),
+                                                   row[f"{key}_ms"])
+                    row[f"{key}_sm_mhz"], row[f"{key}_power_w"] = mhz, watts
+            if "cross" in name and row["dkv_query_splits"] < 2:
+                raise RuntimeError(f"{name}: the dKV query loop was not "
+                                   "split at a cross-attention shape")
             del ops, dk, dv, dq, wdq, wdk, wdv, ot, do
         log("phase 2: train " + json.dumps(row))
         rows.append(row)

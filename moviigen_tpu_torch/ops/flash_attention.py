@@ -33,6 +33,14 @@ the forward-only kernel. Each wrapper counts its launches on
 ``flash_attention`` (``launches``, ``stats_launches``, ``dkv_launches``,
 ``dq_launches``).
 
+The backward kernels are built for Hopper: every product is a ``wgmma``
+on 128-byte-swizzled shared tiles that a producer warp fills by TMA
+through an mbarrier ring (``csrc/flash_bwd.cu``). Where there are few keys
+(the 512-token cross-attention), ``dkv_query_splits`` cuts the dKV query
+loop into chunks whose fp32 partial sums a second kernel adds in a fixed
+order. q, k, v and dO are read in place through tensor maps made from
+their strides.
+
 A batch entry whose ``k_lens`` is 0 attends to nothing and gives zeros
 here, in both versions (the Pallas kernel averages v over its padded key
 blocks there instead); every caller passes at least one key.
@@ -151,6 +159,8 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if valid is not None:
             s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
         p = torch.exp2(s - m) * l_inv
+        if valid is not None:  # also where m is -1e30 (no key attended)
+            p = torch.where(valid, p, torch.zeros_like(p))
         dv[:, :, j0:j1] = torch.matmul(p.transpose(-1, -2), dof)
         dp = torch.matmul(dof, vb.transpose(-1, -2))
         ds = p * (dp - delta)
@@ -225,7 +235,7 @@ _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 _FWD_STATS_ARGS = [ctypes.c_void_p] * 2 + _FWD_ARGS
 _BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                    ctypes.c_void_p])
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 _BWD_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_void_p])
@@ -318,7 +328,9 @@ def bwd_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_launch(ops: BwdOperands, fn_name: str, argtypes, outs, what: str,
-                out_scale: float) -> None:
+                out_scale: float, *extra) -> None:
+    """Call one backward entry point: the operands, ``outs``, the shapes,
+    the 15 strides, ``out_scale``, then ``extra`` and the stream."""
     b, lq, n, d = ops.qs.shape
     strides = (ctypes.c_longlong * 15)(
         *ops.qs.stride()[:3], *ops.k.stride()[:3], *ops.v.stride()[:3],
@@ -328,16 +340,53 @@ def _bwd_launch(ops: BwdOperands, fn_name: str, argtypes, outs, what: str,
              ops.dof.data_ptr(), ops.m.data_ptr(), ops.l.data_ptr(),
              ops.delta.data_ptr(), *(x.data_ptr() for x in outs),
              _ptr(ops.k_lens), b, n, lq, ops.k.shape[1], d, strides,
-             out_scale, _stream(ops.qs))
+             out_scale, *extra, _stream(ops.qs))
     _raise_on(err, what)
 
 
+# The dKV kernel's blocking: a block owns DKV_BLOCK_KEYS keys of one
+# (batch, head) and walks the queries in tiles of DKV_QUERY_TILE rows, one
+# block per SM. DKV_FULL_GRID blocks are two full rounds over an H100's
+# 132 SMs.
+DKV_BLOCK_KEYS = 128
+DKV_QUERY_TILE = 64
+DKV_FULL_GRID = 264
+DKV_MIN_TILES_PER_CHUNK = 8
+
+
+def dkv_query_splits(b: int, n: int, lq: int, lk: int) -> int:
+    """Into how many chunks the dKV kernel's query loop is cut. With few
+    keys (the 512-token cross-attention) there are fewer (key block, head,
+    batch) triples than SMs; then the queries are shared out over as many
+    chunks as still fit in ``DKV_FULL_GRID`` blocks, each chunk keeping at
+    least ``DKV_MIN_TILES_PER_CHUNK`` query tiles. 1 where the keys alone
+    fill the card. A pure function of the shapes, so the order of the
+    sums, and with it every bit of dk and dv, is the same from run to
+    run."""
+    blocks = -(-lk // DKV_BLOCK_KEYS) * n * b
+    tiles = -(-lq // DKV_QUERY_TILE)
+    if blocks == 0:
+        return 1
+    return max(1, min(DKV_FULL_GRID // blocks,
+                      tiles // DKV_MIN_TILES_PER_CHUNK))
+
+
 def flash_bwd_dkv_cuda(ops: BwdOperands):
-    """Launch the dKV kernel: (dk, dv), bf16 [B, Lk, N, D]."""
+    """Launch the dKV kernel: (dk, dv), bf16 [B, Lk, N, D]. Where
+    ``dkv_query_splits`` cuts the query loop, the chunks' fp32 partial
+    sums go through a scratch tensor and a second small kernel adds them
+    in chunk order; that is still one dKV computation and counts as one
+    launch."""
     dk = torch.empty(ops.k.shape, dtype=ops.k.dtype, device=ops.k.device)
     dv = torch.empty(ops.v.shape, dtype=ops.v.dtype, device=ops.v.device)
+    b, lk, n, d = ops.k.shape
+    splits = dkv_query_splits(b, n, ops.qs.shape[1], lk)
+    scratch = None
+    if splits > 1:
+        scratch = torch.empty((2, splits, b, lk, n, d), dtype=torch.float32,
+                              device=ops.k.device)
     _bwd_launch(ops, "flash_bwd_dkv_bf16", _BWD_DKV_ARGS, (dk, dv),
-                "flash dKV kernel", 1.0 / LOG2E)
+                "flash dKV kernel", 1.0 / LOG2E, splits, _ptr(scratch))
     flash_attention.dkv_launches += 1
     return dk, dv
 

@@ -105,6 +105,78 @@ def test_backward_matches_pallas(shape, lk, k_lens):
             assert not bool(g[1, k_lens[1]:].any())
 
 
+@pytest.mark.parametrize("chunks", [2, 3])
+@pytest.mark.parametrize("shape,lk,k_lens", CASES)
+def test_dkv_over_query_chunks_sums_to_the_whole(shape, lk, k_lens, chunks):
+    """What the dKV kernel's split query loop relies on: with the global
+    m, l and Δ = rowsum(o·do), dk and dv are sums over query rows, so the
+    backward over chunks of the queries adds up to the backward over all
+    of them (fp32; 1e-5 of the largest magnitude for the order of the
+    sums), and to ``_flash_bwd``'s dk and dv."""
+    q, k, v, do = _rand(shape, lk, seed=sum(shape) + 3)
+    scale = shape[-1] ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jkl = _klens(k_lens, True)
+    with _interp():
+        o, m, l = jfa._flash_fwd(jq, jk, jv, jkl, scale, BLOCK, BLOCK,
+                                 return_stats=True)
+        _, jdk, jdv = jfa._flash_bwd(jq, jk, jv, jkl, o, m, l, jdo, scale,
+                                     BLOCK, BLOCK)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    to = torch.from_numpy(np.array(o))
+    m_t, l_t = (torch.from_numpy(np.asarray(x).transpose(0, 2, 1).copy())
+                for x in (m, l))
+    tkl = _klens(k_lens, False)
+    _, dk, dv = tfa.flash_bwd_plain(tq, tk, tv, tkl, to, m_t, l_t, tdo, scale)
+    lq = shape[1]
+    edges = [lq * c // chunks for c in range(chunks + 1)]
+    parts = [tfa.flash_bwd_plain(tq[:, a:b], tk, tv, tkl, to[:, a:b],
+                                 m_t[:, :, a:b], l_t[:, :, a:b],
+                                 tdo[:, a:b], scale)
+             for a, b in zip(edges, edges[1:])]
+    for whole, want, idx in ((dk, jdk, 1), (dv, jdv, 2)):
+        summed = sum(part[idx] for part in parts)
+        assert float((summed - whole).abs().max()) <= \
+            1e-5 * float(whole.abs().max())
+        np.testing.assert_allclose(summed.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,lq,lk,lo,hi", [
+    (1, 12, 32760, 32760, 1, 1),      # self-attention: the keys fill the card
+    (1, 12, 32760, 512, 2, 64),       # the 1.3B's text cross-attention
+    (2, 40, 7800, 7800, 1, 1),
+    (1, 8, 5000, 512, 2, 9),
+    (1, 12, 7800, 512, 2, 15),
+    (1, 1, 64 * 8 * 1000, 128, 2, 264),  # never more blocks than a full grid
+    (1, 8, 500, 512, 1, 1),           # too few query tiles to share out
+    (1, 8, 64 * 16, 64, 2, 2),
+    (0, 8, 100, 100, 1, 1),
+])
+def test_dkv_query_splits(b, n, lq, lk, lo, hi):
+    s = tfa.dkv_query_splits(b, n, lq, lk)
+    assert lo <= s <= hi
+    tiles = -(-lq // tfa.DKV_QUERY_TILE)
+    assert s == 1 or s <= tiles // tfa.DKV_MIN_TILES_PER_CHUNK
+    blocks = -(-lk // tfa.DKV_BLOCK_KEYS) * n * b
+    assert s == 1 or s * blocks <= tfa.DKV_FULL_GRID
+    assert s == tfa.dkv_query_splits(b, n, lq, lk)
+
+
+def test_backward_of_a_batch_entry_without_keys_is_zero():
+    """k_lens = 0: the forward gives out = 0, m = -1e30, l = 0; the
+    backward masks P explicitly, as the kernels do, so every gradient of
+    that entry is exactly zero (exp2(s − m) alone would be 1 there)."""
+    q, k, v, do = _t(*_rand((2, 40, 2, 16), 24, seed=11))
+    kl = torch.tensor([24, 0], dtype=torch.int32)
+    out, m, l = tfa.flash_attention_stats_plain(q, k, v, kl)
+    assert not bool(out[1].any())
+    dq, dk, dv = tfa.flash_bwd_plain(q, k, v, kl, out, m, l, do)
+    for g in (dq, dk, dv):
+        assert not bool(g[1].any())
+        assert bool(g[0].abs().max() > 0)
+
+
 @pytest.mark.parametrize("backend", ["auto", "plain"])
 @pytest.mark.parametrize("shape,lk,k_lens", CASES[:2])
 def test_autograd_matches_jax_grad(shape, lk, k_lens, backend):

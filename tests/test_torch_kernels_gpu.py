@@ -35,8 +35,13 @@ SHAPES = [
     (1, 64, 1, None),                 # a single key
 ]
 # With one key the softmax is constant and dq is 0 up to rounding, which
-# no relative bound can hold; the backward takes three keys there.
-BWD_SHAPES = SHAPES[:3] + [(1, 64, 3, None)]
+# no relative bound can hold; the backward takes three keys there. Then:
+# few keys and many queries, where the dKV query loop is split into chunks
+# (``dkv_query_splits``); k_lens inside a key tile, a second key block that
+# is partly past Lk, and a batch entry with one key; Lq under one tile.
+SPLIT_SHAPE = (1, 5000, 512, None)
+BWD_SHAPES = SHAPES[:3] + [(1, 64, 3, None), SPLIT_SHAPE,
+                           (2, 130, 70, (70, 1)), (1, 40, 200, None)]
 
 
 @pytest.fixture
@@ -125,8 +130,15 @@ def test_attention_grads_on_cuda_match_plain(cuda):
         _close(g, w, GRAD_REL_TOL)
 
 
-def test_backward_is_deterministic(cuda):
-    q, k, v = _qkv(cuda, 1, 1000, 1000)
+def test_split_shape_splits_the_query_loop():
+    b, lq, lk, _ = SPLIT_SHAPE
+    assert tfa.dkv_query_splits(b, 8, lq, lk) > 1
+    assert tfa.dkv_query_splits(1, 8, 5000, 5000) == 1
+
+
+@pytest.mark.parametrize("b,lq,lk", [(1, 5000, 5000), SPLIT_SHAPE[:3]])
+def test_backward_is_deterministic(cuda, b, lq, lk):
+    q, k, v = _qkv(cuda, b, lq, lk)
     out, m, l = tfa.flash_attention_stats_cuda(q, k, v)
     do = torch.randn(out.shape, generator=cuda, device="cuda",
                      dtype=torch.bfloat16)
@@ -155,6 +167,29 @@ def test_flash_kernel_reads_strided_views(cuda):
         _close(g.contiguous(), w.contiguous(), GRAD_REL_TOL)
 
 
+def test_backward_kernels_read_strided_views(cuda):
+    """q, k, v as slices of one fused [B, L, 3N, D] tensor and a ``do``
+    that is a view of a wider tensor: the tensor maps are built from the
+    views' strides, nothing is copied but ``do``."""
+    n = 4
+    qkv = torch.randn(2, 333, 3 * n, 128, generator=cuda, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :n], qkv[:, :, n:2 * n], qkv[:, :, 2 * n:]
+    assert not q.is_contiguous() and k.data_ptr() != qkv.data_ptr()
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    kl = _klens((333, 100))
+    out, m, l = tfa.flash_attention_stats_cuda(q, k, v, kl)
+    do = torch.randn(2, 333, n, 256, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)[..., 128:]
+    assert not do.is_contiguous()
+    got = tfa.flash_bwd_cuda(q, k, v, kl, out, m, l, do)
+    want = tfa.flash_bwd_plain(qc, kc, vc, kl, out, m, l, do.contiguous())
+    for g, w in zip(got, want):
+        _close(g.contiguous(), w.contiguous(), GRAD_REL_TOL)
+    for g in got[1:]:
+        assert not bool(g[1, 100:].any())
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D=64"):
@@ -171,6 +206,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_attention_stats_cuda(q, q, q)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.flash_bwd_cuda(q, q, q, None, q, m, m, q)
+    # a backward operand whose head stride is not a multiple of 8 elements
+    q = torch.zeros(1, 16, 2, 128, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 16, 2, 132, device="cuda",
+                    dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa.flash_bwd_cuda(q, k, q, None, q, m, m, q)
 
 
 # ------------------------------------------------------------- int8 GEMM
