@@ -7,11 +7,14 @@ NVIDIA Hopper card.
 
 Phases:
  1. setup: card name and power limit, TF32 off, build the CUDA kernels
-    (``flash_fwd``, ``flash_bwd`` and ``int8_gemm``, one ``nvcc`` each, in
+    (``flash_fwd``, ``flash_bwd`` and ``int8_gemm``, and the forward's
+    earlier ``mma.sync`` design as its yardstick, one ``nvcc`` each, in
     parallel);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes of the serving, the training and the W8A8 path, with times,
-    bounds and the library yardsticks;
+    bounds and the library yardsticks (the forward and its stats variant
+    also beside their design before the Hopper redesign, and with SM clock
+    and power under load at the main shapes);
  3. the t2v-14B DiT at full width (depth cut) with the kernel against the
     plain attention; then quantized: W8A8 through the int8 GEMM kernel
     against its plain version, int8 and int4 against the same weights
@@ -48,6 +51,7 @@ import argparse
 import contextlib
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -57,6 +61,11 @@ import time
 import numpy as np
 
 DEVICE = "cuda"
+# The flash forward's design before its Hopper redesign (mma.sync, cp.async),
+# timed through the same wrappers as the "before redesign" yardstick.
+FWD_BEFORE = "flash_fwd_mma_sync"
+FWD_BEFORE_SOURCE = (pathlib.Path(__file__).resolve().parent / "tools"
+                     / f"{FWD_BEFORE}.cu")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -94,6 +103,7 @@ TRAIN_HEADS = 12
 TRAIN_CASES = [
     # name, kind, B, Lq, Lk, k_lens as fractions of Lk (None = no mask)
     ("g_stats_self_B1_L32760", "stats", 1, 32760, 32760, None),
+    ("g2_stats_cross_B1_Lq32760_Lk512", "stats", 1, 32760, 512, None),
     ("h_bwd_self_B1_L32760", "bwd", 1, 32760, 32760, None),
     ("i_bwd_cross_B1_Lq32760_Lk512", "bwd", 1, 32760, 512, None),
     ("j_bwd_klens_B2_L7800", "bwd", 2, 7800, 7800, (1.0, 0.6)),
@@ -237,12 +247,28 @@ def phase_setup(report):
     from moviigen_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    secs = kernels.build(kernels.KERNELS)
+    secs = kernels.build(kernels.KERNELS + (FWD_BEFORE,),
+                         {FWD_BEFORE: FWD_BEFORE_SOURCE})
     log(f"phase 1: built kernels {secs} in {time.perf_counter() - t0:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+
+
+@contextlib.contextmanager
+def forward_before_redesign():
+    """Inside, the forward wrappers (``flash_attention_cuda``,
+    ``flash_attention_stats_cuda``) call the forward's design before its
+    Hopper redesign (``FWD_BEFORE_SOURCE``): the yardstick timed beside
+    the kernel. The port itself never calls it."""
+    from moviigen_tpu_torch import kernels
+
+    kernels.use("flash_fwd", FWD_BEFORE_SOURCE)
+    try:
+        yield
+    finally:
+        kernels.use("flash_fwd")
 
 
 def phase_kernels(report):
@@ -274,6 +300,9 @@ def phase_kernels(report):
         scale_ref = float(want.float().abs().max())
         rel = max_abs / scale_ref
         ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, k_lens))
+        with forward_before_redesign():
+            before_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                                k_lens))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, k_lens),
                            iters=10, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -287,9 +316,13 @@ def phase_kernels(report):
         bound_ms, bound_by = flash_bound(b, lq, lk_eff)
         row = dict(case=name, B=b, Lq=lq, Lk=lk, k_lens=lk_eff,
                    max_abs_err=max_abs, rel_err=rel,
-                   mean_abs_err=float(err.mean()), ms=ms, plain_ms=plain_ms,
+                   mean_abs_err=float(err.mean()), ms=ms,
+                   before_redesign_ms=before_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms)
+        if name.startswith("a_"):  # the main shape: clocks and power
+            row["sm_mhz"], row["power_w"] = clocks_under_load(
+                lambda: fa.flash_attention_cuda(q, k, v, k_lens), ms)
         log("phase 2: flash " + json.dumps(row))
         if rel > FLASH_REL_TOL:
             raise RuntimeError(
@@ -355,16 +388,25 @@ def train_kernel_cases(report):
                     for what, g, w in zip(("out", "m", "l"), got, want)]
             with torch.no_grad():
                 lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+
+            def stats_fwd():
+                return fa.flash_attention_stats_cuda(q, k, v, k_lens)
+
+            ms = cuda_ms(stats_fwd)
+            with forward_before_redesign():
+                before_ms = cuda_ms(stats_fwd)
             row.update(
                 kernel="flash_fwd_stats",
                 max_abs_err=max(e[0] for e in errs),
                 rel_err={w: e[1] for w, e in zip(("out", "m", "l"), errs)},
-                ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(
-                    q, k, v, k_lens)),
+                ms=ms, before_redesign_ms=before_ms,
                 plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(
                     q, k, v, k_lens), iters=3, warmup=1),
                 library_ms=lib_ms, library="SDPA forward",
                 bound_ms=fwd_b, bound_by=fwd_by)
+            if name.startswith("g_"):  # the main shape: clocks and power
+                row["sm_mhz"], row["power_w"] = clocks_under_load(stats_fwd,
+                                                                  ms)
         else:
             out, m, l = want
             do = torch.randn(out.shape, generator=gen, device=DEVICE,
@@ -512,6 +554,7 @@ def kernels_line(report):
         "launches": report.get("launches", 0),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"],
+        "before_redesign_ms": main["before_redesign_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
@@ -548,7 +591,8 @@ def kernels_line(report):
         "replaces": "moviigen_tpu/ops/flash_attention.py:105",
         "launches": counts.get("stats_launches", 0),
         "max_abs_err": max(c["max_abs_err"] for c in stats),
-        "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "ms": s["ms"], "before_redesign_ms": s["before_redesign_ms"],
+        "plain_ms": s["plain_ms"],
         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
         "library_ms": s["library_ms"], "cases": stats,
     })

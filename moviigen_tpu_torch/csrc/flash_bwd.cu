@@ -68,9 +68,6 @@
 // no tile and writes zeros. The caller passes [B, L, N, D] views through
 // their strides.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "flash_common.cuh"
 
 namespace {
@@ -139,14 +136,6 @@ __device__ __forceinline__ void row_stats(const Params& p, long long base,
     linv = 0.f;
     delta = 0.f;
   }
-}
-
-// Two neighbouring 8-column accumulator chunks, packed to bf16, as half
-// of the register A fragment of k-step nt / 2.
-__device__ __forceinline__ void pack_chunk(uint32_t (&frag)[4][4], int nt,
-                                           const float (&x)[4]) {
-  frag[nt / 2][(nt % 2) * 2] = pack_bf16(x[0], x[1]);
-  frag[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(x[2], x[3]);
 }
 
 // One query tile of dKV for one warpgroup that owns 64 keys: S^T = K q'^T
@@ -280,15 +269,6 @@ __device__ __forceinline__ void dq_tile(uint32_t sQ, uint32_t sDO,
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(acc);
-}
-
-template <int kChunks>
-__device__ __forceinline__ void zero_acc(float (&d)[kChunks][4]) {
-#pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
-  }
 }
 
 // Write a warp's 16 x 128 fp32 accumulator as fp32 rows row0 + g and
@@ -566,56 +546,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda, which the process has
-// loaded already (nothing links against it).
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A tensor map over one [B, L, N, D] bf16 view, dimensions (D, N, L, B)
-// with the view's strides, whose box is one swizzled half tile: 64
-// columns of 64 rows of one head. Rows past L are filled with zeros.
-bool make_map(CUtensorMap* map, const void* base, int batch, int rows,
-              int heads, long long sb, long long sl, long long sn) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,
-                                 static_cast<cuuint64_t>(sl) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kD / 2, 1, kTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
 bool make_maps(Maps* maps, const Params& p, int batch, int heads) {
-  return make_map(&maps->q, p.q, batch, p.lq, heads, p.sqb, p.sql, p.sqn) &&
-         make_map(&maps->k, p.k, batch, p.lk, heads, p.skb, p.skl, p.skn) &&
-         make_map(&maps->v, p.v, batch, p.lk, heads, p.svb, p.svl, p.svn) &&
+  return make_map(&maps->q, p.q, batch, p.lq, heads, p.sqb, p.sql, p.sqn,
+                  kTile) &&
+         make_map(&maps->k, p.k, batch, p.lk, heads, p.skb, p.skl, p.skn,
+                  kTile) &&
+         make_map(&maps->v, p.v, batch, p.lk, heads, p.svb, p.svl, p.svn,
+                  kTile) &&
          make_map(&maps->dout, p.dout, batch, p.lq, heads, p.sdob, p.sdol,
-                  p.sdon);
+                  p.sdon, kTile);
 }
 
 template <typename Kernel>

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (named by
 a hash of its source and the shared ``csrc/*.cuh`` headers, so an edited
-source is rebuilt), then loaded with ``ctypes``. Builds happen at first use,
-never at import.
+source is rebuilt), then loaded with ``ctypes``. Builds happen at first
+use, never at import. ``use`` points a kernel's wrappers at another source
+with the same entry points (an earlier design kept as a yardstick), for
+timing through the same wrapper.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Optional
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -44,30 +46,33 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _target(name: str) -> Path:
+def _target(source: Path) -> Path:
     """The library's path, named by a hash of its source and of every
     shared header under ``csrc/``."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
+def build(names: Iterable[str],
+          sources: Optional[Mapping[str, Path]] = None) -> Dict[str, float]:
     """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together. Returns the seconds each build took
-    (0.0 for one already built). Raises with the compiler's output on
-    failure."""
+    source, all started together: ``csrc/<name>.cu``, or ``sources[name]``
+    where given. Returns the seconds each build took (0.0 for one already
+    built). Raises with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sources or {}
     procs = {}
     secs = {}
     for name in names:
-        out = _target(name)
+        src = sources.get(name, CSRC / f"{name}.cu")
+        out = _target(src)
         if out.exists():
             secs[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -85,7 +90,17 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+        lib = use(name)
+    return lib
+
+
+def use(name: str, source: Optional[Path] = None) -> ctypes.CDLL:
+    """Build ``source`` (default ``csrc/<name>.cu``) and make it the
+    library that ``load(name)``, and so every wrapper of that kernel, calls
+    from now on. ``use(name)`` goes back to the kernel itself. The source
+    must export the same entry points."""
+    src = source or CSRC / f"{name}.cu"
+    build([name], {name: src})
+    lib = ctypes.CDLL(str(_target(src)))
+    _LIBS[name] = lib
     return lib

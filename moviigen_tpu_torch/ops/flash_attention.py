@@ -33,13 +33,16 @@ the forward-only kernel. Each wrapper counts its launches on
 ``flash_attention`` (``launches``, ``stats_launches``, ``dkv_launches``,
 ``dq_launches``).
 
-The backward kernels are built for Hopper: every product is a ``wgmma``
-on 128-byte-swizzled shared tiles that a producer warp fills by TMA
-through an mbarrier ring (``csrc/flash_bwd.cu``). Where there are few keys
-(the 512-token cross-attention), ``dkv_query_splits`` cuts the dKV query
-loop into chunks whose fp32 partial sums a second kernel adds in a fixed
-order. q, k, v and dO are read in place through tensor maps made from
-their strides.
+All four are built for Hopper: every product is a ``wgmma`` on
+128-byte-swizzled shared tiles that a producer warp fills by TMA through an
+mbarrier ring (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). The forward
+runs one persistent block per SM over 128-row work items, its two consumer
+warpgroups taking turns so that one's softmax runs under the other's
+products, and prescales q in shared memory. Where there are few keys (the
+512-token cross-attention), ``dkv_query_splits`` cuts the dKV query loop
+into chunks whose fp32 partial sums a second kernel adds in a fixed order.
+q, k, v and dO are read in place through tensor maps made from their
+strides.
 
 A batch entry whose ``k_lens`` is 0 attends to nothing and gives zeros
 here, in both versions (the Pallas kernel averages v over its padded key

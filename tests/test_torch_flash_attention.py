@@ -57,6 +57,64 @@ def test_plain_matches_pallas_interpret_fp32(shape, lk, k_lens):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
 
 
+# The CUDA kernels' edge shapes (tests/test_torch_kernels_gpu.py): Lk
+# under one key tile, k_lens inside a tile and a batch entry with one key,
+# Lq under one query tile, few keys and many queries, and a batch entry
+# with no key. There the two versions differ on purpose (ROADMAP §3): the
+# port gives zeros (m = -1e30, l = 0), the Pallas kernel averages v over
+# its padded key block; that entry is checked on its own.
+EDGE_SHAPES = [
+    ((1, 64, 2, 32), 3, None),
+    ((2, 130, 2, 32), 70, (70, 1)),
+    ((1, 40, 2, 32), 200, None),
+    ((1, 5000, 1, 32), 512, None),
+    ((2, 1000, 1, 32), None, (1000, 0)),
+]
+
+
+def _with_keys(k_lens, b):
+    """Batch entries that attend to at least one key."""
+    return [i for i in range(b) if k_lens is None or k_lens[i] > 0]
+
+
+@pytest.mark.parametrize("shape,lk,k_lens", EDGE_SHAPES)
+def test_plain_matches_pallas_interpret_at_kernel_edges(shape, lk, k_lens):
+    q, k, v = _qkv(*shape, lk=lk, seed=sum(shape))
+    want = _pallas_interp(q, k, v, k_lens)
+    got = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        k_lens=None if k_lens is None else torch.tensor(k_lens)).numpy()
+    keep = _with_keys(k_lens, shape[0])
+    np.testing.assert_allclose(got[keep], want[keep], atol=2e-5, rtol=1e-4)
+    for i in set(range(shape[0])) - set(keep):
+        assert not got[i].any()
+
+
+@pytest.mark.parametrize("shape,lk,k_lens", EDGE_SHAPES)
+def test_stats_plain_matches_pallas_interpret_at_kernel_edges(shape, lk,
+                                                              k_lens):
+    q, k, v = _qkv(*shape, lk=lk, seed=sum(shape) + 1)
+    with mock.patch.object(jfa.pl, "pallas_call",
+                           functools.partial(_orig_pallas_call,
+                                             interpret=True)):
+        want = jfa.flash_attention_with_stats(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            k_lens=None if k_lens is None else jnp.asarray(k_lens,
+                                                           jnp.int32),
+            block_q=128, block_k=128)
+    got = tfa.flash_attention_with_stats(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        k_lens=None if k_lens is None else torch.tensor(k_lens))
+    keep = _with_keys(k_lens, shape[0])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy()[keep], np.asarray(w)[keep],
+                                   atol=2e-5, rtol=1e-4)
+    m_none = float(torch.tensor(-1e30) * (1.0 / tfa.LOG2E))
+    for i in set(range(shape[0])) - set(keep):
+        out, m, l = (x[i] for x in got)
+        assert not out.any() and not l.any() and bool((m == m_none).all())
+
+
 def test_plain_matches_pallas_interpret_bf16():
     """bf16 inputs and output on both sides. Both round q·c, P and the
     output to bf16, but at different key blocks (512 against 128), so the

@@ -42,6 +42,12 @@ SHAPES = [
 SPLIT_SHAPE = (1, 5000, 512, None)
 BWD_SHAPES = SHAPES[:3] + [(1, 64, 3, None), SPLIT_SHAPE,
                            (2, 130, 70, (70, 1)), (1, 40, 200, None)]
+# The forward's 128-row query blocks and 128-key tiles: the backward's edge
+# shapes (Lk under one tile, k_lens inside a tile and a batch entry with
+# one key, Lq under one tile, few keys and many queries), and a batch entry
+# with no key at all, which gives zeros, m = -1e30 and l = 0 (at 2,000
+# rows, where a block of the persistent grid walks items of both entries).
+FWD_SHAPES = SHAPES + BWD_SHAPES[3:] + [(2, 2000, 1000, (1000, 0))]
 
 
 @pytest.fixture
@@ -68,26 +74,51 @@ def _klens(k_lens):
     return None if k_lens is None else torch.tensor(k_lens, device="cuda")
 
 
-@pytest.mark.parametrize("b,lq,lk,k_lens", SHAPES)
+def _close_fwd(got, want, k_lens):
+    """out (and m, l) against the plain twin; a batch entry with no key
+    must give exactly out = 0, m = -1e30 and l = 0, and is left out of the
+    relative bound (its m would make the bound meaningless)."""
+    keep = list(range(got[0].shape[0]))
+    if k_lens is not None and 0 in k_lens:
+        i = k_lens.index(0)
+        keep.remove(i)
+        for g, zero in zip(got, (0.0, -1e30, 0.0)):
+            assert bool((g[i] == zero).all())
+    for g, w in zip(got, want):
+        _close(g[keep], w[keep])
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", FWD_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, lq, lk, k_lens):
     q, k, v = _qkv(cuda, b, lq, lk)
     kl = _klens(k_lens)
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, kl)
     assert tfa.flash_attention.launches == before + 1
-    _close(got, tfa.flash_attention_plain(q, k, v, kl))
+    _close_fwd((got,), (tfa.flash_attention_plain(q, k, v, kl),), k_lens)
 
 
-@pytest.mark.parametrize("b,lq,lk,k_lens", SHAPES)
+@pytest.mark.parametrize("b,lq,lk,k_lens", FWD_SHAPES)
 def test_stats_kernel_matches_plain(cuda, b, lq, lk, k_lens):
     q, k, v = _qkv(cuda, b, lq, lk)
     kl = _klens(k_lens)
     before = tfa.flash_attention.stats_launches
     got = tfa.flash_attention_stats_cuda(q, k, v, kl)
     assert tfa.flash_attention.stats_launches == before + 1
-    want = tfa.flash_attention_stats_plain(q, k, v, kl)
-    for g, w in zip(got, want):
-        _close(g, w)
+    _close_fwd(got, tfa.flash_attention_stats_plain(q, k, v, kl), k_lens)
+
+
+@pytest.mark.parametrize("b,lq,lk", [(1, 5000, 5000), SPLIT_SHAPE[:3]])
+def test_forward_kernels_are_deterministic(cuda, b, lq, lk):
+    """Each block owns its query rows and sums its keys in one order:
+    the same bits from run to run."""
+    q, k, v = _qkv(cuda, b, lq, lk)
+    assert torch.equal(tfa.flash_attention_cuda(q, k, v),
+                       tfa.flash_attention_cuda(q, k, v))
+    first = tfa.flash_attention_stats_cuda(q, k, v)
+    second = tfa.flash_attention_stats_cuda(q, k, v)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("b,lq,lk,k_lens", BWD_SHAPES)
@@ -165,6 +196,23 @@ def test_flash_kernel_reads_strided_views(cuda):
     want = tfa.flash_bwd_plain(qc, kc, vc, None, out, m, l, do)
     for g, w in zip(got, want):
         _close(g.contiguous(), w.contiguous(), GRAD_REL_TOL)
+
+
+def test_stats_kernel_reads_strided_views(cuda):
+    """The stats forward on q, k, v sliced from one fused [B, L, 3N, D]
+    tensor, with a key mask: out, m and l as the plain twin gives them
+    from contiguous copies."""
+    n = 4
+    qkv = torch.randn(2, 333, 3 * n, 128, generator=cuda, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :n], qkv[:, :, n:2 * n], qkv[:, :, 2 * n:]
+    assert not q.is_contiguous()
+    kl = _klens((333, 100))
+    got = tfa.flash_attention_stats_cuda(q, k, v, kl)
+    want = tfa.flash_attention_stats_plain(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), kl)
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 def test_backward_kernels_read_strided_views(cuda):
