@@ -7,18 +7,18 @@ NVIDIA Hopper card.
 
 Phases:
  1. setup: card name and power limit, TF32 off, build the CUDA kernels
-    (``flash_fwd``, ``flash_bwd`` and ``int8_gemm``, and the forward's
-    earlier ``mma.sync`` design as its yardstick, one ``nvcc`` each, in
-    parallel);
+    (``flash_fwd``, ``flash_bwd``, ``int8_gemm`` and ``quantize_act``, and
+    the earlier ``mma.sync`` designs of the forward and of the int8 GEMM
+    as their yardsticks, one ``nvcc`` each, in parallel);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes of the serving, the training and the W8A8 path, with times,
-    bounds and the library yardsticks (the forward and its stats variant
-    also beside their design before the Hopper redesign, and with SM clock
-    and power under load at the main shapes);
+    bounds and the library yardsticks (the forward, its stats variant and
+    the int8 GEMM also beside their design before the Hopper redesign, and
+    with SM clock and power under load at the main shapes);
  3. the t2v-14B DiT at full width (depth cut) with the kernel against the
-    plain attention; then quantized: W8A8 through the int8 GEMM kernel
-    against its plain version, int8 and int4 against the same weights
-    dequantized into plain linears;
+    plain attention; then quantized: W8A8 through the int8 GEMM and the
+    activation-quantization kernels against their plain versions, int8
+    and int4 against the same weights dequantized into plain linears;
  4. the serving path: ``WanT2V`` for t2v-14B at full width and depth
     (random weights) answering two requests, with the forward kernel's
     launches counted;
@@ -33,10 +33,10 @@ Phases:
  7. (only when asked: ``--phases 7``) a torch.profiler breakdown of one
     full-depth t2v-1.3B fine-tune step at 32,760 tokens;
  8. quantized serving: (a) ``WanT2V(quant="w8a8")`` for t2v-14B at full
-    width and depth answering the first request, with the int8 GEMM's
-    launches counted; (b) ``cli.generate --ckpt_dir --quant int8`` twice
-    over a random checkpoint directory at full width (depth cut), the
-    second start from the quantized caches;
+    width and depth answering the first request, with the int8 GEMM's and
+    the activation quantization's launches counted; (b) ``cli.generate
+    --ckpt_dir --quant int8`` twice over a random checkpoint directory at
+    full width (depth cut), the second start from the quantized caches;
  9. (only when asked: ``--phases 9``) a torch.profiler breakdown of one
     full-depth W8A8 DiT forward at the first request's shape.
 
@@ -66,6 +66,10 @@ DEVICE = "cuda"
 FWD_BEFORE = "flash_fwd_mma_sync"
 FWD_BEFORE_SOURCE = (pathlib.Path(__file__).resolve().parent / "tools"
                      / f"{FWD_BEFORE}.cu")
+# The int8 GEMM's design before its Hopper redesign (mma.sync, cp.async),
+# the same kind of yardstick.
+GEMM_BEFORE = "int8_gemm_mma_sync"
+GEMM_BEFORE_SOURCE = FWD_BEFORE_SOURCE.parent / f"{GEMM_BEFORE}.cu"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -136,8 +140,18 @@ INT8_CASES = [
 # The int8 GEMM against its plain version: no tolerance. The int32 sum is
 # exact in both, and the kernel's epilogue rounds each fp32 operation on
 # its own (no fma contraction) exactly as the plain version's eager ops
-# do, so every output element must be the same bits.
+# do, so every output element must be the same bits, in each bias mode.
 INT8_ABS_TOL = 0.0
+# The bias modes: (tag, with a bias, bias_after_cast)
+BIAS_MODES = [("no_bias", False, False), ("bias", True, False),
+              ("bias_after_cast", True, True)]
+# The activation quantization at the W8A8 path's shapes (M, K): the
+# attention and fc1 inputs of the first request, the fc2 input, the
+# attention input of the 81-frame clip, and the text context of the cross
+# k/v. The kernel against its plain version: no tolerance either (both
+# divisions correctly rounded, round half to even, as in the plain
+# version).
+QUANT_CASES = [(15600, 5120), (15600, 13824), (32760, 5120), (1024, 5120)]
 
 
 def log(msg: str) -> None:
@@ -233,10 +247,9 @@ def rel_err(got, want):
 def phase_setup(report):
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from moviigen_tpu_torch import kernels
+
+    smi = kernels.card_line()
     print(smi, flush=True)
     report["card"] = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -244,11 +257,10 @@ def phase_setup(report):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from moviigen_tpu_torch import kernels
-
     t0 = time.perf_counter()
-    secs = kernels.build(kernels.KERNELS + (FWD_BEFORE,),
-                         {FWD_BEFORE: FWD_BEFORE_SOURCE})
+    secs = kernels.build(kernels.KERNELS + (FWD_BEFORE, GEMM_BEFORE),
+                         {FWD_BEFORE: FWD_BEFORE_SOURCE,
+                          GEMM_BEFORE: GEMM_BEFORE_SOURCE})
     log(f"phase 1: built kernels {secs} in {time.perf_counter() - t0:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
@@ -257,18 +269,23 @@ def phase_setup(report):
 
 
 @contextlib.contextmanager
-def forward_before_redesign():
-    """Inside, the forward wrappers (``flash_attention_cuda``,
-    ``flash_attention_stats_cuda``) call the forward's design before its
-    Hopper redesign (``FWD_BEFORE_SOURCE``): the yardstick timed beside
-    the kernel. The port itself never calls it."""
+def before_redesign(name, source):
+    """Inside, the wrappers of kernel ``name`` call its design before the
+    Hopper redesign (``source``): the yardstick timed beside the kernel.
+    The port itself never calls it."""
     from moviigen_tpu_torch import kernels
 
-    kernels.use("flash_fwd", FWD_BEFORE_SOURCE)
+    kernels.use(name, source)
     try:
         yield
     finally:
-        kernels.use("flash_fwd")
+        kernels.use(name)
+
+
+def forward_before_redesign():
+    """The forward wrappers (``flash_attention_cuda``,
+    ``flash_attention_stats_cuda``) on the forward's earlier design."""
+    return before_redesign("flash_fwd", FWD_BEFORE_SOURCE)
 
 
 def phase_kernels(report):
@@ -458,9 +475,10 @@ def train_kernel_cases(report):
 
 
 def int8_kernel_cases(report):
-    """The int8 GEMM at the W8A8 path's shapes, with and without the
-    fused bias, against its plain version (bit for bit). Yardsticks the
-    port never calls: ``torch._int_mm`` plus the eager rescale (the
+    """The int8 GEMM at the W8A8 path's shapes, in its three bias modes,
+    against its plain version (bit for bit), beside its design before the
+    Hopper redesign; then the activation-quantization kernel. Yardsticks
+    the port never calls: ``torch._int_mm`` plus the eager rescale (the
     library's route to the same function) and the bf16 ``F.linear`` of
     the same layer (what W8A8 competes with)."""
     import torch
@@ -483,9 +501,10 @@ def int8_kernel_cases(report):
         bias = torch.randn(n, generator=gen, device=DEVICE,
                            dtype=torch.bfloat16)
         errs = {}
-        for tag, b in (("no_bias", None), ("bias", bias)):
-            got = ig.int8_gemm_fused(xq, wq, sx, sw, b)
-            want = ig.int8_gemm_plain(xq, wq, sx, sw, b)
+        for tag, with_bias, after in BIAS_MODES:
+            b = bias if with_bias else None
+            got = ig.int8_gemm_fused(xq, wq, sx, sw, b, bias_after_cast=after)
+            want = ig.int8_gemm_plain(xq, wq, sx, sw, b, bias_after_cast=after)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"int8 {name} {tag}: non-finite output")
@@ -500,8 +519,16 @@ def int8_kernel_cases(report):
         nbytes = m * k + n * k + 2 * m * n + 4 * (m + n)
         bound_ms, bound_by = _bound(ops, nbytes, PEAK_INT8_OPS)
         bound_bias_ms, _ = _bound(ops, nbytes + 4 * n, PEAK_INT8_OPS)
-        ms = cuda_ms(lambda: ig.int8_gemm_fused(xq, wq, sx, sw))
-        ms_bias = cuda_ms(lambda: ig.int8_gemm_fused(xq, wq, sx, sw, bias))
+
+        def kernel(b=None, after=False):
+            return ig.int8_gemm_fused(xq, wq, sx, sw, b, bias_after_cast=after)
+
+        ms = cuda_ms(kernel)
+        ms_bias = cuda_ms(lambda: kernel(bias))
+        ms_after = cuda_ms(lambda: kernel(bias, True))
+        with before_redesign("int8_gemm", GEMM_BEFORE_SOURCE):
+            before_ms = cuda_ms(kernel)
+            before_after_ms = cuda_ms(lambda: kernel(bias, True))
         plain_ms = cuda_ms(lambda: ig.int8_gemm_plain(xq, wq, sx, sw),
                            iters=3, warmup=1)
         wt = wq.t()  # [K, N] column-major, the layout _int_mm wants
@@ -521,26 +548,73 @@ def int8_kernel_cases(report):
         wb = torch.randn(n, k, generator=gen, device=DEVICE,
                          dtype=torch.bfloat16)
         bf16_ms = cuda_ms(lambda: F.linear(x, wb))
-        quant_ms = cuda_ms(lambda: quantize_activations(x))
         # what a weight-only linear pays per call before its cuBLAS product
         deq8_ms = cuda_ms(lambda: dequantize_leaf(wq, sw, torch.bfloat16))
         q4, s4 = quantize_linear_int4(wb)
         deq4_ms = cuda_ms(lambda: dequantize_leaf(q4, s4, torch.bfloat16))
         del q4, s4
         row = dict(case=name, M=m, K=k, N=n, max_abs_err=max(errs.values()),
-                   ms=ms, ms_bias=ms_bias, plain_ms=plain_ms,
+                   max_abs_err_by_mode=errs,
+                   ms=ms, ms_bias=ms_bias, ms_bias_after_cast=ms_after,
+                   before_redesign_ms=before_ms,
+                   before_redesign_bias_after_cast_ms=before_after_ms,
+                   plain_ms=plain_ms,
                    library_ms=lib_ms, library="torch._int_mm + eager rescale",
                    library_equal=same, int_mm_only_ms=int_mm_ms,
-                   bf16_linear_ms=bf16_ms, quantize_activations_ms=quant_ms,
+                   bf16_linear_ms=bf16_ms,
                    dequant_int8_ms=deq8_ms, dequant_int4_ms=deq4_ms,
                    bound_ms=bound_ms, bound_bias_ms=bound_bias_ms,
                    bound_by=bound_by, bound_share=bound_ms / ms,
                    tops=ops / ms / 1e9)
+        if name.startswith("b_"):  # the widest shape: clocks and power
+            row["sm_mhz"], row["power_w"] = clocks_under_load(kernel, ms)
         log("phase 2: int8 " + json.dumps(row))
         rows.append(row)
         del x, xq, sx, wq, wt, wb
         torch.cuda.empty_cache()
     report["int8_cases"] = rows
+    quantize_kernel_cases(report)
+
+
+def quantize_kernel_cases(report):
+    """The activation-quantization kernel at the W8A8 path's shapes
+    against its plain version (bit for bit). No single PyTorch call
+    computes this function, so there is no library yardstick."""
+    import torch
+
+    from moviigen_tpu_torch.ops import quantization as tq
+
+    rows = []
+    for i, (m, k) in enumerate(QUANT_CASES):
+        gen = torch.Generator(device=DEVICE).manual_seed(300 + i)
+        x = torch.randn(m, k, generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16)
+        x[::7] *= 1e3  # rows at other scales
+        x[1::11] = 0.0  # rows at the 1e-8 floor
+        got_q, got_s = tq.quantize_activations_cuda(x)
+        want_q, want_s = tq.quantize_activations_plain(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_q, want_q) and torch.equal(got_s, want_s)):
+            raise RuntimeError(
+                f"quantize M={m} K={k}: kernel differs from plain in "
+                f"{int((got_q != want_q).sum())} codes and "
+                f"{int((got_s != want_s).sum())} scales")
+        err = max(float((got_q.float() - want_q.float()).abs().max()),
+                  float((got_s - want_s).abs().max()))
+        # x read once, xq and sx written once
+        bound_ms, bound_by = _bound(8.0 * m * k, 3 * m * k + 4 * m)
+        ms = cuda_ms(lambda: tq.quantize_activations_cuda(x))
+        row = dict(case=f"quantize_M{m}_K{k}", M=m, K=k, max_abs_err=err,
+                   ms=ms, plain_ms=cuda_ms(
+                       lambda: tq.quantize_activations_plain(x), iters=5),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms, library_ms=None,
+                   library="none: no single PyTorch call computes it")
+        log("phase 2: quantize " + json.dumps(row))
+        rows.append(row)
+        del x, got_q, got_s, want_q, want_s
+        torch.cuda.empty_cache()
+    report["quantize_cases"] = rows
 
 
 def kernels_line(report):
@@ -571,11 +645,28 @@ def kernels_line(report):
             "replaces": "moviigen_tpu/ops/int8_gemm.py:53",
             "launches": report.get("int8_launches", 0),
             "max_abs_err": max(c["max_abs_err"] for c in int8),
-            "ms": main8["ms"], "plain_ms": main8["plain_ms"],
+            "ms": main8["ms"],
+            "before_redesign_ms": main8["before_redesign_ms"],
+            "plain_ms": main8["plain_ms"],
             "bound_ms": main8["bound_ms"], "bound_by": main8["bound_by"],
             "library_ms": main8["library_ms"],
             "bf16_linear_ms": main8["bf16_linear_ms"],
             "cases": int8,
+        })
+        quant = report["quantize_cases"]
+        mainq = quant[0]  # the attention input of the first request
+        entries.append({
+            "name": "quantize_act",
+            "route": "cuda",
+            "source": "moviigen_tpu_torch/csrc/quantize_act.cu",
+            "replaces": "moviigen_tpu/ops/quantization.py:81 (XLA, not a "
+                        "Pallas kernel)",
+            "launches": report.get("quantize_launches", 0),
+            "max_abs_err": max(c["max_abs_err"] for c in quant),
+            "ms": mainq["ms"], "plain_ms": mainq["plain_ms"],
+            "bound_ms": mainq["bound_ms"], "bound_by": mainq["bound_by"],
+            "library_ms": None, "library": mainq["library"],
+            "cases": quant,
         })
     train = report.get("train_cases")
     if not train:
@@ -686,12 +777,13 @@ def phase_dit(report):
 
 
 # Quantized DiT (phase 3), 2 blocks at full width, bf16 compute.
-# W8A8, int8 GEMM kernel against its plain version: every GEMM is the same
-# bits (INT8_ABS_TOL) and the rest of the forward is the same code on the
-# same inputs, so the predictions are expected equal; the bound allows for
-# one reduction elsewhere taking another order between two runs, which
-# can flip a round(x / sx) tie and move one activation code by a step
-# (1/127 of its token's absmax).
+# W8A8, the int8 GEMM and the activation-quantization kernels against
+# their plain versions: every GEMM and every quantization is the same bits
+# (INT8_ABS_TOL) and the rest of the forward is the same code on the same
+# inputs, so the predictions are expected equal; the bound allows for one
+# reduction elsewhere taking another order between two runs, which can
+# flip a round(x / sx) tie and move one activation code by a step (1/127
+# of its token's absmax).
 # int8 / int4 weight-only against plain nn.Linears holding the same
 # dequantized bf16 weights: the same cuBLAS product on the same values;
 # the bound allows for cuBLAS choosing another algorithm for a weight that
@@ -701,17 +793,23 @@ QUANT_DIT_REL_TOL = 1e-3
 
 @contextlib.contextmanager
 def plain_int8_gemm():
-    """Inside, the W8A8 linears run the int8 GEMM's plain version on the
-    card (the reference the kernel path is held against)."""
+    """Inside, the W8A8 linears run the plain versions of the int8 GEMM
+    and of the activation quantization on the card (the reference the
+    kernel path is held against)."""
     from moviigen_tpu_torch.models import wan_model as wm
     from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops import quantization as tq
 
-    saved = ig.int8_gemm_fused, wm.int8_gemm_fused
+    saved = (ig.int8_gemm_fused, wm.int8_gemm_fused, ig.quantize_activations,
+             wm.quantize_activations)
     ig.int8_gemm_fused = wm.int8_gemm_fused = ig.int8_gemm_plain
+    ig.quantize_activations = wm.quantize_activations = \
+        tq.quantize_activations_plain
     try:
         yield
     finally:
-        ig.int8_gemm_fused, wm.int8_gemm_fused = saved
+        (ig.int8_gemm_fused, wm.int8_gemm_fused, ig.quantize_activations,
+         wm.quantize_activations) = saved
 
 
 def _dit_inputs(cfg, gen):
@@ -754,10 +852,13 @@ def phase_dit_quant(report):
             x, t, ctx, rope = _dit_inputs(cfg, gen)
             ig.reset_launch_counts()
             got = model(x, t, ctx, rope, seq_len=7800).float()
-            launches = ig.launch_counts()["int8_gemm_launches"]
+            launches = ig.launch_counts()
             if quant == "w8a8":
                 with plain_int8_gemm():
                     want = model(x, t, ctx, rope, seq_len=7800).float()
+                if ig.launch_counts() != launches:
+                    raise RuntimeError("DiT w8a8: the plain run launched a "
+                                       f"kernel: {ig.launch_counts()}")
             else:
                 twin = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE)
                 params = dict(model.named_parameters())
@@ -780,18 +881,21 @@ def phase_dit_quant(report):
         if not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"DiT {quant}: non-finite prediction")
         rel = float((got - want).norm() / want.norm())
-        expected = 10 * DIT_SMOKE_LAYERS if quant == "w8a8" else 0
+        # per block: 10 linears through the GEMM, their inputs quantized
+        # in 7 groups (q/k/v share one, as do the cross k/v)
+        w8a8 = quant == "w8a8"
+        expected = dict(int8_gemm_launches=10 * DIT_SMOKE_LAYERS * w8a8,
+                        quantize_launches=7 * DIT_SMOKE_LAYERS * w8a8)
         rows[quant] = dict(rel_norm_err=rel,
                            equal=bool(torch.equal(got, want)),
-                           pred_norm=float(want.norm()),
-                           int8_gemm_launches=launches)
+                           pred_norm=float(want.norm()), launches=launches)
         log(f"phase 3: quantized dit {quant} " + json.dumps(rows[quant]))
         if rel > QUANT_DIT_REL_TOL:
             raise RuntimeError(f"DiT {quant}: relative error {rel:.3e} > "
                                f"{QUANT_DIT_REL_TOL}")
         if launches != expected:
-            raise RuntimeError(f"DiT {quant}: int8 GEMM launched {launches} "
-                               f"times, expected {expected}")
+            raise RuntimeError(f"DiT {quant}: W8A8 kernels launched "
+                               f"{launches}, expected {expected}")
         del model, got, want
         torch.cuda.empty_cache()
     report["dit_quant"] = rows
@@ -838,8 +942,9 @@ def phase_main_path(report):
         launches = counts.pop("launches")
         if any(counts.values()):  # serving runs under no-grad
             raise RuntimeError(f"{name}: training kernels launched {counts}")
-        if ig.launch_counts()["int8_gemm_launches"]:
-            raise RuntimeError(f"{name}: the bf16 path launched the int8 GEMM")
+        if any(ig.launch_counts().values()):
+            raise RuntimeError(f"{name}: the bf16 path launched W8A8 kernels "
+                               f"{ig.launch_counts()}")
         total_launches += launches
         _serve_checks(name, video, frames)
         if launches != expected:
@@ -868,6 +973,8 @@ def phase_main_path(report):
 def _kernel_category(name: str) -> str:
     if "int8_gemm" in name:
         return "int8 GEMM (this port's kernel)"
+    if "quantize_rows" in name:
+        return "activation quantization (this port's kernel)"
     if "flash_bwd_dkv" in name:
         return "flash dKV (this port's kernel)"
     if "flash_bwd_dq" in name:
@@ -1080,6 +1187,7 @@ def phase_trainer(report):
     from moviigen_tpu_torch.models.wan_convert import (
         EXPORT_NAME, export_wan_safetensors, wan_params_to_state_dict)
     from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
     from moviigen_tpu_torch.training.checkpoint import OPT_FILE, PARAMS_FILE
     from moviigen_tpu_torch.utils.safetensors import load_file
 
@@ -1114,6 +1222,7 @@ def phase_trainer(report):
 
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    ig.reset_launch_counts()
     t0 = time.perf_counter()
     record = finetune.main([
         "--task", TRAIN_TASK, "--device", DEVICE,
@@ -1127,6 +1236,9 @@ def phase_trainer(report):
     counts = fa.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     report["train_launches"] = counts
+    if any(ig.launch_counts().values()):
+        raise RuntimeError(f"trainer: W8A8 kernels launched "
+                           f"{ig.launch_counts()}")
 
     # per step, each of the 2 x 30 attention sites: the stats forward in
     # the forward and again in the per-block recompute, one dKV, one dQ
@@ -1272,10 +1384,12 @@ def phase_quant_serving(report):
                           sampling_steps=steps, sample_solver=solver, seed=42)
     total_s = time.perf_counter() - t0
     counts = {**fa.launch_counts(), **ig.launch_counts()}
-    # one batched-CFG forward per step: 10 block linears and 2 attention
-    # sites in each of the 40 blocks
+    # one batched-CFG forward per step: 10 block linears, their inputs
+    # quantized in 7 groups, and 2 attention sites in each of the 40
+    # blocks (400 GEMM and 280 quantize launches per forward)
     want = dict.fromkeys(counts, 0)
     want["int8_gemm_launches"] = 10 * config.model.num_layers * steps
+    want["quantize_launches"] = 7 * config.model.num_layers * steps
     want["launches"] = 2 * config.model.num_layers * steps
     _serve_checks(name, video, frames)
     if counts != want:
@@ -1289,6 +1403,7 @@ def phase_quant_serving(report):
     log("phase 8a: " + json.dumps(row))
     report["w8a8_request"] = row
     report["int8_launches"] = counts["int8_gemm_launches"]
+    report["quantize_launches"] = counts["quantize_launches"]
     del pipe
     torch.cuda.empty_cache()
     phase_ckpt_dir_serving(report)

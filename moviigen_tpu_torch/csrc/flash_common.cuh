@@ -1,8 +1,9 @@
 // Helpers shared by the hand-written kernels: async copies and ldmatrix
-// (int8_gemm.cu), and the Hopper set both flash-attention sources
-// (flash_fwd.cu, flash_bwd.cu) are built from: 128-byte swizzled shared
-// tiles, wgmma matrix descriptors and instructions, mbarriers, named
-// barriers, TMA tile loads and the host-side tensor-map builder.
+// (the mma.sync designs kept as yardsticks under tools/), and the Hopper
+// set that the flash-attention sources (flash_fwd.cu, flash_bwd.cu) and the
+// int8 GEMM (int8_gemm.cu) are built from: 128-byte swizzled shared tiles,
+// wgmma matrix descriptors and instructions, mbarriers, named barriers, TMA
+// tile loads and the host-side tensor-map encoders.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16, and a wgmma
 // accumulator, whose warps each hold 16 rows in the same layout): a
@@ -328,6 +329,19 @@ __device__ __forceinline__ void tma_load_half(uint32_t dst, const void* map,
       : "memory");
 }
 
+// TMA: one box of a rank-2 tensor map (its rows x 128 bytes, see
+// make_map_2d_s8) at column c0, row c1 into shared `dst`; completion is
+// counted in bytes on `bar`. Rows and columns past the tensor arrive as
+// zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -380,6 +394,26 @@ inline bool make_map(CUtensorMap* map, const void* base, int batch, int rows,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a contiguous [rows, cols] int8 matrix (cols a multiple
+// of 16), whose box is one swizzled tile: `box_rows` rows (at most 256) of
+// 128 bytes, the K slice of a wgmma operand read K-major. Rows and columns
+// past the matrix are filled with zeros.
+inline bool make_map_2d_s8(CUtensorMap* map, const void* base, int rows,
+                           int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

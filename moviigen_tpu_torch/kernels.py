@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every ``csrc/<name>.cu`` of the port
-KERNELS = ("flash_fwd", "flash_bwd", "int8_gemm")
+KERNELS = ("flash_fwd", "flash_bwd", "int8_gemm", "quantize_act")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -84,6 +84,16 @@ def build(names: Iterable[str],
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         os.replace(tmp, out)
     return secs
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, the
+    line to keep beside every measurement (a card held under its maximum
+    power runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,9 +13,11 @@ JAX module's, value for value; the layout is the port's: a weight is
   when ``in % 128``), q in [-7, 7] stored biased (q + 8), two per byte:
   low nibble = input 2k, high nibble = input 2k + 1.
 - **W8A8** (``act8``, int8 only): activations are quantized per token at
-  run time (``quantize_activations``) and the product is int8 × int8 →
-  int32 (``ops.int8_gemm``); the per-channel weight scale and the
-  per-token activation scale factor out of the contraction.
+  run time (``quantize_activations``: on the card the one-pass kernel
+  ``csrc/quantize_act.cu``, plain version ``quantize_activations_plain``)
+  and the product is int8 × int8 → int32 (``ops.int8_gemm``); the
+  per-channel weight scale and the per-token activation scale factor out
+  of the contraction.
 
 Weight-only linears dequantize to the compute dtype per call and go
 through ``F.linear``. Embeddings, norms, modulations and the head stay
@@ -28,6 +30,7 @@ package reads the other's file.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -77,13 +80,74 @@ def quantize_linear_int4(weight: torch.Tensor, group: int = 128
     return packed, scale.squeeze(-1)
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-token dynamic symmetric int8: (xq int8, sx fp32 [..., 1]) with
-    x ≈ xq · sx; the absmax runs over the feature (contraction) dim."""
+def quantize_activations_plain(x: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_activations`` in plain PyTorch, on any device. Both
+    divisions are true divisions on every device: divided by a Python
+    number, a CUDA tensor is multiplied by its reciprocal instead, which
+    is not always the correctly rounded quotient that JAX and the kernel
+    compute."""
     xf = x.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    sx = amax / torch.full_like(amax, 127.0)
     xq = torch.round(xf / sx).clamp_(-127, 127).to(torch.int8)
     return xq, sx
+
+
+# the kernel's limits (csrc/quantize_act.cu): 8-element vectors, at most
+# four of them for each of 1,024 threads
+_QUANT_VEC = 8
+_QUANT_MAX_K = 4 * 1024 * _QUANT_VEC
+_QUANT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def quantize_activations_cuda(x: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/quantize_act.cu`` on the current stream: bf16 or fp32
+    [..., K] with K a multiple of 8 up to 32,768. Raises on anything
+    else; never falls back."""
+    if not x.is_cuda:
+        raise ValueError(f"quantize_act kernel: x is on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("quantize_act kernel: x must be bfloat16 or float32, "
+                        f"got {x.dtype}")
+    k = x.shape[-1] if x.dim() else 0
+    if k < _QUANT_VEC or k % _QUANT_VEC or k > _QUANT_MAX_K:
+        raise ValueError(f"quantize_act kernel: K={k} must be a positive "
+                         f"multiple of {_QUANT_VEC} up to {_QUANT_MAX_K}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    sx = torch.empty((*lead, 1), dtype=torch.float32, device=x.device)
+    from .. import kernels
+
+    fn = kernels.load("quantize_act").quantize_act
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _QUANT_ARGS
+    err = fn(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), x2.shape[0], k,
+             int(x.dtype == torch.float32),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quantize_act kernel launch failed: CUDA error "
+                           f"{err}")
+    quantize_activations.launches += 1
+    return xq, sx
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token dynamic symmetric int8: (xq int8, sx fp32 [..., 1]) with
+    x ≈ xq · sx; the absmax runs over the feature (contraction) dim.
+    CUDA tensors run the one-pass kernel, CPU tensors the plain version;
+    the kernel counts its launches on ``quantize_activations.launches``."""
+    if x.is_cuda:
+        return quantize_activations_cuda(x)
+    return quantize_activations_plain(x)
+
+
+quantize_activations.launches = 0
 
 
 def dequantize_leaf(qweight: torch.Tensor, scale: torch.Tensor,
@@ -171,11 +235,12 @@ class QuantLinear(nn.Module):
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         cd = dtype or torch.bfloat16
         if self.act8:
-            # rescale in fp32, cast, then the bias in the compute dtype
+            # rescale in fp32, cast, then the bias in the compute dtype:
+            # the GEMM's bias-after-cast epilogue
             from .int8_gemm import w8a8_linear
 
-            out = w8a8_linear(x, self.qweight, self.scale, None, out_dtype=cd)
-            return out if self.bias is None else out + self.bias.to(cd)
+            return w8a8_linear(x, self.qweight, self.scale, self.bias,
+                               out_dtype=cd, bias_after_cast=True)
         w = dequantize_leaf(self.qweight, self.scale, cd)
         bias = None if self.bias is None else self.bias.to(cd)
         return F.linear(x.to(cd), w, bias)

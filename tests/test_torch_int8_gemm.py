@@ -155,3 +155,57 @@ def test_refuses_bad_operands():
         tig.int8_gemm_fused(xq, wq, sx[:2], sw)
     with pytest.raises(TypeError, match="out_dtype"):
         tig.int8_gemm_fused(xq, wq, sx, sw, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+def test_plain_bias_after_cast_matches_jax_dense(cd):
+    """The third bias mode against the JAX ``_dense`` W8A8 branch
+    (wan_model.py:193-199): rescale in fp32, cast to the compute dtype,
+    then add the bias in that dtype. Both sides quantize the same
+    activations to the same codes (test_torch_quantization.py), so the
+    GEMM's epilogue is what is compared. In bf16 the two roundings are
+    the same operations on both sides: equal bits. In fp32 the cast is
+    exact and XLA may contract ``· sw + bias`` into an fma: 1e-6."""
+    from moviigen_tpu.models import wan_model as jwan
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 50, 256)).astype(np.float32)
+    w = (rng.standard_normal((256, 136)) * 0.02).astype(np.float32)
+    bias = rng.standard_normal(136).astype(np.float32)
+    q8, scale = jax_quantize(w)
+    leaf = {"q8": jnp.asarray(q8), "scale": jnp.asarray(scale),
+            "bias": jnp.asarray(bias).astype(jnp.bfloat16),
+            "a8": np.ones((), np.int8)}
+    want = np.asarray(jwan._dense(leaf, jnp.asarray(x), getattr(jnp, cd))
+                      .astype(jnp.float32))
+    xq, sx = tig.quantize_activations(torch.from_numpy(x))
+    got = tig.int8_gemm_plain(
+        xq.reshape(-1, 256), torch.from_numpy(q8.T.copy()), sx.reshape(-1),
+        torch.from_numpy(scale), torch.from_numpy(bias).to(torch.bfloat16),
+        out_dtype=getattr(torch, cd), bias_after_cast=True)
+    got = got.float().numpy().reshape(want.shape)
+    if cd == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    fused = tig.int8_gemm_plain(
+        xq.reshape(-1, 256), torch.from_numpy(q8.T.copy()), sx.reshape(-1),
+        torch.from_numpy(scale), torch.from_numpy(bias).to(torch.bfloat16),
+        out_dtype=getattr(torch, cd))
+    if cd == "bfloat16":  # the modes differ where the bias is rounded twice
+        assert not np.array_equal(fused.float().numpy().reshape(want.shape),
+                                  want)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_bias_after_cast_without_a_bias_is_the_plain_product(with_bias):
+    """The mode flag changes nothing when there is no bias, and the two
+    modes are one fp32 add apart when the output is fp32."""
+    xq, wq, sx, sw, bias = (torch.from_numpy(a)
+                            for a in _operands(96, 256, 128, seed=5))
+    wq = wq.T.contiguous()
+    b = bias if with_bias else None
+    after = tig.int8_gemm_fused(xq, wq, sx, sw, b, out_dtype=torch.float32,
+                                bias_after_cast=True)
+    before = tig.int8_gemm_fused(xq, wq, sx, sw, b, out_dtype=torch.float32)
+    assert torch.equal(after, before)

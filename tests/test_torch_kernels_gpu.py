@@ -12,6 +12,7 @@ import torch
 
 from moviigen_tpu_torch.ops import flash_attention as tfa
 from moviigen_tpu_torch.ops import int8_gemm as tig
+from moviigen_tpu_torch.ops import quantization as tq
 from moviigen_tpu_torch.ops.attention import attention
 from moviigen_tpu_torch.ops.quantization import QuantLinear
 
@@ -316,10 +317,12 @@ def test_w8a8_linear_on_cuda_goes_through_the_kernel(cuda):
     lin.bias.normal_(generator=cuda)
     x = torch.randn(2, 77, 256, generator=cuda, device="cuda",
                     dtype=torch.bfloat16)
-    before = tig.int8_gemm_fused.launches
+    before = tig.launch_counts()
     got = lin(x, torch.bfloat16)
-    assert tig.int8_gemm_fused.launches == before + 1
-    xq, sx = tig.quantize_activations(x)
+    after = tig.launch_counts()
+    assert after["int8_gemm_launches"] == before["int8_gemm_launches"] + 1
+    assert after["quantize_launches"] == before["quantize_launches"] + 1
+    xq, sx = tq.quantize_activations_plain(x)
     want = tig.int8_gemm_plain(xq.reshape(-1, 256), lin.qweight, sx, lin.scale
                                ).reshape(2, 77, 384) + lin.bias
     assert torch.equal(got, want)
@@ -339,3 +342,159 @@ def test_int8_gemm_kernel_refuses_what_it_does_not_take(cuda):
         tig.int8_gemm_fused(xq, wq, sx, sw, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="not on"):
         tig.int8_gemm_fused(xq, wq.cpu(), sx, sw)
+    with pytest.raises(ValueError, match="positive multiple of 16"):
+        tig.int8_gemm_fused(xq[:, :0], wq[:, :0], sx, sw)
+
+
+# The redesigned GEMM's edges: M around its 64-row warpgroup halves and
+# 128-row tiles, N around its 256-column tiles (and one 8-column chunk), K
+# under, at and past one 128-byte slice (TMA zero-fills the tail).
+GEMM_M = [1, 63, 64, 65, 129, 333, 1024]
+GEMM_N = [8, 136, 264, 5120]
+GEMM_K = [16, 48, 144, 5120]
+# (bias, bias_after_cast): none, fp32 before the cast, after the cast
+BIAS_MODES = [(False, False), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+def test_int8_gemm_kernel_equals_plain_in_every_mode(cuda, m, n):
+    """Bit for bit against the plain version at every K of ``GEMM_K``, in
+    the three bias modes and both output types."""
+    for k in GEMM_K:
+        xq, wq, sx, sw, bias = _int8_operands(cuda, m, k, n)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            for with_bias, after in BIAS_MODES:
+                b = bias if with_bias else None
+                got = tig.int8_gemm_fused(xq, wq, sx, sw, b, out_dtype,
+                                          bias_after_cast=after)
+                want = tig.int8_gemm_plain(xq, wq, sx, sw, b, out_dtype,
+                                           bias_after_cast=after)
+                assert got.dtype == out_dtype and got.shape == (m, n)
+                assert torch.equal(got, want), (k, out_dtype, with_bias,
+                                                after)
+
+
+def test_int8_gemm_kernel_takes_unaligned_and_strided_inputs(cuda):
+    """Operands that start off a 16-byte boundary or are views with
+    strides: the wrapper hands the kernel aligned contiguous copies and
+    the result is the plain version's on contiguous inputs."""
+    m, k, n = 200, 272, 136
+    xq, wq, sx, sw, bias = _int8_operands(cuda, m, k, n)
+    raw = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+    xq_off = raw[1:].view(m, k)
+    xq_off.copy_(xq)
+    assert xq_off.data_ptr() % 16
+    wq_t = wq.t().contiguous().t()                # [N, K] column-major view
+    sx_s = torch.stack([sx[:, 0], sx[:, 0]], 1)[:, 0]  # stride 2
+    assert not wq_t.is_contiguous() and not sx_s.is_contiguous()
+    for after in (False, True):
+        got = tig.int8_gemm_fused(xq_off, wq_t, sx_s, sw, bias,
+                                  bias_after_cast=after)
+        want = tig.int8_gemm_plain(xq, wq, sx, sw, bias,
+                                   bias_after_cast=after)
+        assert torch.equal(got, want)
+
+
+# Shapes with enough output tiles for several rounds of the persistent
+# grid, where the launch takes the wide (128 x 256) tiles; the shapes above
+# take the narrow ones.
+WIDE_SHAPES = [(4200, 144, 5120), (2000, 48, 13832), (4200, 5120, 5120)]
+
+
+@pytest.mark.parametrize("m,k,n", WIDE_SHAPES)
+def test_int8_gemm_kernel_wide_tiles_equal_plain(cuda, m, k, n):
+    xq, wq, sx, sw, bias = _int8_operands(cuda, m, k, n)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        for with_bias, after in BIAS_MODES:
+            b = bias if with_bias else None
+            got = tig.int8_gemm_fused(xq, wq, sx, sw, b, out_dtype,
+                                      bias_after_cast=after)
+            want = tig.int8_gemm_plain(xq, wq, sx, sw, b, out_dtype,
+                                       bias_after_cast=after)
+            assert torch.equal(got, want), (out_dtype, with_bias, after)
+
+
+@pytest.mark.parametrize("m,k,n", [(3000, 1024, 2048), WIDE_SHAPES[0]])
+def test_int8_gemm_kernel_is_deterministic(cuda, m, k, n):
+    """Each tile sums its K slices in one order: the same bits from run
+    to run, where the persistent grid walks several tiles per block."""
+    xq, wq, sx, sw, bias = _int8_operands(cuda, m, k, n)
+    first = tig.int8_gemm_fused(xq, wq, sx, sw, bias, bias_after_cast=True)
+    for _ in range(3):
+        assert torch.equal(first, tig.int8_gemm_fused(
+            xq, wq, sx, sw, bias, bias_after_cast=True))
+
+
+# ------------------------------------------------- activation quantization
+
+
+def _hard_rows(gen, m, k, dtype):
+    """Gaussian rows at random scales; every third row on exact .5 ties of
+    x / sx (absmax 127·2^e makes sx = 2^e exactly), every fourth all zero,
+    every fifth one spike in zeros."""
+    x = torch.randn(m, k, generator=gen, device="cuda") * 2.0 ** torch.randint(
+        -8, 8, (m, 1), generator=gen, device="cuda")
+    step = 2.0 ** torch.randint(-6, 3, (m, 1), generator=gen, device="cuda")
+    ties = (torch.randint(-126, 126, (m, k), generator=gen, device="cuda")
+            + 0.5) * step
+    ties[:, k // 2] = -127 * step[:, 0]
+    spike = torch.zeros_like(x)
+    spike[:, k // 3] = 50.0
+    rows = torch.arange(m, device="cuda")[:, None]
+    x = torch.where(rows % 3 == 0, ties, x)
+    x = torch.where((rows % 4 == 0) & (rows % 3 != 0), 0.0, x)
+    x = torch.where((rows % 5 == 0) & (rows % 3 != 0) & (rows % 4 != 0),
+                    spike, x)
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("k", [16, 136, 5120, 13824, 32768])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_kernel_equals_plain(cuda, dtype, k):
+    x = _hard_rows(cuda, 97, k, dtype)
+    before = tq.quantize_activations.launches
+    got_q, got_s = tq.quantize_activations(x)
+    assert tq.quantize_activations.launches == before + 1
+    want_q, want_s = tq.quantize_activations_plain(x)
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    assert got_s.shape == (97, 1)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    ties = (got_q[0].float() - x[0].float() / got_s[0]).abs() == 0.5
+    assert bool(ties.sum() > k // 4)
+
+
+def test_quantize_kernel_reads_views_and_propagates_nan(cuda):
+    """A [B, L, K] view with strides is quantized as its contiguous copy;
+    a NaN in a row makes that row's sx NaN, as amax does."""
+    x = _hard_rows(cuda, 2 * 60, 2 * 256, torch.bfloat16).reshape(
+        2, 60, 512)[..., 256:]
+    assert not x.is_contiguous()
+    got_q, got_s = tq.quantize_activations(x)
+    want_q, want_s = tq.quantize_activations_plain(x.contiguous())
+    assert got_q.shape == (2, 60, 256) and got_s.shape == (2, 60, 1)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    y = x.contiguous()
+    y[1, 7, 9] = float("nan")
+    got_q, got_s = tq.quantize_activations(y)
+    want_q, want_s = tq.quantize_activations_plain(y)
+    assert bool(torch.isnan(got_s[1, 7]).all()) and bool(
+        torch.isnan(want_s[1, 7]).all())
+    keep = torch.ones(2, 60, dtype=torch.bool, device="cuda")
+    keep[1, 7] = False
+    assert torch.equal(got_q[keep], want_q[keep])
+    assert torch.equal(got_s[keep], want_s[keep])
+
+
+def test_quantize_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tq.quantize_activations(x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tq.quantize_activations(torch.zeros(4, 12, device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tq.quantize_activations(torch.zeros(4, 0, device="cuda"))
+    with pytest.raises(ValueError, match="up to"):
+        tq.quantize_activations(torch.zeros(1, 32776, device="cuda"))
+    with pytest.raises(ValueError, match="is on cpu"):
+        tq.quantize_activations_cuda(torch.zeros(4, 64))

@@ -206,3 +206,84 @@ def test_random_quantized_init_is_seeded_and_in_range():
     t5 = T5Encoder(T5Config(**T5KW), quant_bits=4).init_weights(gen)
     assert t5.blocks[0].fc1.qweight.dtype == torch.uint8
     assert float(t5.token_embedding.scale[0]) == pytest.approx(1 / 127)
+
+
+def _hard_rows(m, k, seed=0):
+    """[m, k] fp32 rows that are hard for the activation quantization:
+    every third row sits on exact .5 ties of x / sx (absmax 127·2^e makes
+    sx = 2^e exactly, and (c + 0.5)·2^e is exact in bf16 too), every
+    fourth is all zero (sx = 1e-8 / 127), every fifth is one spike in
+    zeros; the rest are Gaussian at random scales."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32) \
+        * np.float32(2.0) ** rng.integers(-8, 8, (m, 1))
+    for r in range(m):
+        if r % 3 == 0:
+            step = np.float32(2.0) ** rng.integers(-6, 3)
+            x[r] = (rng.integers(-126, 126, k) + 0.5) * step
+            x[r, rng.integers(k)] = 127 * step * rng.choice([-1, 1])
+        elif r % 4 == 0:
+            x[r] = 0.0
+        elif r % 5 == 0:
+            x[r] = 0.0
+            x[r, rng.integers(k)] = rng.standard_normal() * 50
+    return x
+
+
+@pytest.mark.parametrize("k", [16, 5120, 13824])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_activations_plain_bit_equal_to_jax_on_hard_rows(dtype, k):
+    """The plain version (what the kernel is held to on the card) against
+    JAX ``quantize_activations`` bit for bit: the .5 ties round to even on
+    both sides, the all-zero rows take the 1e-8 floor, and sx is the
+    correctly rounded quotient by 127 on both."""
+    x = _hard_rows(24, k, seed=k)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    want_q, want_s = jq.quantize_activations(xj)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got_q, got_s = tq.quantize_activations_plain(xt)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    ties = got_q[0].float() - xt[0].float() / got_s[0]
+    assert bool((ties.abs() == 0.5).sum() > k // 4)  # the ties are there
+    assert float(got_s[4, 0]) == np.float32(1e-8) / np.float32(127)
+
+
+def test_quantize_activations_on_cpu_is_the_plain_version():
+    """A CPU tensor runs the plain version and counts no kernel launch."""
+    x = torch.from_numpy(_hard_rows(6, 48, seed=1)).reshape(2, 3, 48)
+    before = tq.quantize_activations.launches
+    got_q, got_s = tq.quantize_activations(x)
+    want_q, want_s = tq.quantize_activations_plain(x)
+    assert tq.quantize_activations.launches == before
+    assert got_q.shape == (2, 3, 48) and got_s.shape == (2, 3, 1)
+    assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+def test_quantlinear_w8a8_equals_jax_dense(cd):
+    """``QuantLinear`` W8A8, which now hands its bias to the GEMM's
+    bias-after-cast epilogue, against the JAX ``_dense`` on the same
+    quantized leaf: equal bits in bf16, 1e-6 in fp32 (where XLA may
+    contract the rescale and the bias add into an fma)."""
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((192, 96)) * 0.05).astype(np.float32)
+    bias = rng.standard_normal(96).astype(np.float32)
+    x = rng.standard_normal((2, 40, 192)).astype(np.float32)
+    lin = torch.nn.Linear(192, 96, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w.T.copy()))
+        lin.bias.copy_(torch.from_numpy(bias))
+    q = tq.QuantLinear.from_linear(lin, act8=True)
+    leaf = {"q8": jnp.asarray(q.qweight.numpy().T),
+            "scale": jnp.asarray(q.scale.numpy()),
+            "bias": jnp.asarray(_to_np(q.bias)),
+            "a8": np.ones((), np.int8)}
+    want = np.asarray(jwan._dense(leaf, jnp.asarray(x), getattr(jnp, cd))
+                      .astype(jnp.float32))
+    with torch.no_grad():
+        got = q(torch.from_numpy(x), getattr(torch, cd)).float().numpy()
+    if cd == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
