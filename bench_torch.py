@@ -22,8 +22,14 @@ Writes one JSON line per size:
   too; null off the card;
 - ``peak_gib``: ``torch.cuda.max_memory_allocated`` over the request, the
   resident models included;
-- ``t5_s``, ``decode_s`` and ``min_per_clip_50``: (t5_s + 50 ·
-  s_per_step + decode_s) / 60, a 50-step clip extrapolated from this run;
+- ``t5_s``, ``decode_s``, ``dit_park_s``, ``dit_unpark_s`` and
+  ``min_per_clip_50``: (t5_s + 50 · s_per_step + dit_park_s + decode_s +
+  dit_unpark_s) / 60, a 50-step clip extrapolated from this run.
+  ``dit_park_s`` is the time to move the DiT to host memory before a
+  decode over the pipeline's ``FREE_DIT_DECODE_GIB`` and
+  ``dit_unpark_s`` the time to bring it back, which the bench does right
+  after such a request (the next request would pay it): both null for a
+  size that does not park;
 - the device's name and count, and the card's name and power limit as
   ``nvidia-smi`` gives them.
 
@@ -96,6 +102,7 @@ def run_size(pipe, config, size, args):
                     s_per_step=statistics.median(timed) if timed else None)
         return line
     t = pipe.timings
+    pipe.unpark_dit()  # adds dit_unpark_s to t when the decode parked
     s_step = statistics.median(t["step_s"][args.warmup_steps:])
     flops = dit_flops(config.model, tokens, batch=2)  # cond + uncond
     line.update(
@@ -106,7 +113,10 @@ def run_size(pipe, config, size, args):
         mfu=flops / s_step / PEAK_BF16_FLOPS if cuda else None,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
         t5_s=t["t5_s"], decode_s=t["decode_s"],
-        min_per_clip_50=(t["t5_s"] + CLIP_STEPS * s_step + t["decode_s"]) / 60)
+        dit_park_s=t.get("dit_park_s"), dit_unpark_s=t.get("dit_unpark_s"),
+        min_per_clip_50=(t["t5_s"] + CLIP_STEPS * s_step + t["decode_s"]
+                         + t.get("dit_park_s", 0.0)
+                         + t.get("dit_unpark_s", 0.0)) / 60)
     return line
 
 

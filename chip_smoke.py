@@ -38,7 +38,16 @@ Phases:
     --ckpt_dir --quant int8`` twice over a random checkpoint directory at
     full width (depth cut), the second start from the quantized caches;
  9. (only when asked: ``--phases 9``) a torch.profiler breakdown of one
-    full-depth W8A8 DiT forward at the first request's shape.
+    full-depth W8A8 DiT forward at the first request's shape;
+10. the preprocessing path: (a) ``cli.preprocess`` at its defaults on 3
+    synthetic 1920×832×81 ``.npy`` clips with the full Wan VAE and
+    umT5-XXL (random weights), then resumed; (b) the streaming encode
+    against the full-tensor encode in fp32; (c) ``cli.preprocess_stages``
+    vae + text on the same clips, equal to (a); (d) one 832×480 clip
+    preprocessed and ``cli.finetune`` taking a t2v-1.3B step on the port's
+    own caches; (e) the t2v-14B pipeline's decode of a 1920×832×81 latent
+    beside the DiT and of a 1920×1072×81 one with the DiT parked in host
+    memory, then a request with it back.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -1548,16 +1557,298 @@ def phase_quant_profile(report):
     del model
     torch.cuda.empty_cache()
 
+# Phase 10: the preprocessing path at the CLI's defaults (1920×832 crops,
+# 81 frames) with the full Wan VAE and umT5-XXL that t2v-14B and t2v-1.3B
+# share, random weights from the CLI's seed.
+PRE_TASK = "t2v-14B"
+PRE_CLIPS = 3
+PRE_FRAMES, PRE_H, PRE_W = 81, 832, 1920
+# streaming against full-tensor encode: a slice the full encode fits at
+PRE_CHECK_FRAMES, PRE_CHECK_H, PRE_CHECK_W = 17, 480, 832
+# the clip fine-tuning reads: the finetune CLI's default 480×832 crops
+PRE_FT_H, PRE_FT_W = 480, 832
+# fp32 with TF32 off on both sides: the two orders of the same convs
+# differ by fp32 rounding, orders of magnitude under 1e-3 of the latents'
+# scale; a wrong cache (a frame lost or doubled) is off by O(1)
+PRE_STREAM_REL_TOL = 1e-3
+PRE_CAPTIONS = (PROMPT, "A red fox crosses a snowy field at dawn.",
+                "Aerial shot of waves breaking on black volcanic rocks, "
+                "slow motion, golden hour, the camera drifting left.")
+
+
+def _write_clips(root, sizes, seed):
+    """Synthetic raw clips as ``.npy`` ([T, H, W, 3] uint8, 16 fps) with
+    their annotation json and merge file; returns the merge file."""
+    rng = np.random.default_rng(seed)
+    vids = root / "videos"
+    vids.mkdir(parents=True)
+    annos = []
+    for i, (frames, h, w) in enumerate(sizes):
+        path = vids / f"clip{i}.npy"
+        np.save(path, rng.integers(0, 256, (frames, h, w, 3), np.uint8))
+        annos.append({"path": str(path),
+                      "cap": PRE_CAPTIONS[i % len(PRE_CAPTIONS)],
+                      "fps": 16, "duration": frames / 16,
+                      "resolution": {"height": h, "width": w}})
+    (root / "annos.json").write_text(json.dumps(annos))
+    merge = root / "merge.txt"
+    merge.write_text(str(root / "annos.json") + "\n")
+    return str(merge)
+
+
+def _read_outputs(out_dir, items, latent_shape, text_dim, tokenizer):
+    """Each item's latent and embedding, checked: fp32 latents of
+    ``latent_shape`` and finite, embeddings [true_len, text_dim]."""
+    out = {}
+    for item in items:
+        lat = np.load(out_dir / "latent" / item["latent_path"])
+        emb = np.load(out_dir / "prompt_embed" / item["prompt_embed_path"])
+        _, mask = tokenizer([item["caption"]], return_mask=True)
+        want_emb = (int(mask[0].sum()), text_dim)
+        if lat.shape != latent_shape or lat.dtype != np.float32 \
+                or not np.isfinite(lat).all():
+            raise RuntimeError(f"preprocess: latent {item['latent_path']} "
+                               f"{lat.shape} {lat.dtype}")
+        if emb.shape != want_emb or not np.isfinite(emb).all():
+            raise RuntimeError(f"preprocess: embedding {emb.shape}, "
+                               f"expected {want_emb}")
+        out[item["latent_path"]] = (lat, emb)
+    return out
+
+
+def phase_preprocess(report):
+    """(a) ``cli.preprocess`` at its defaults on 3 synthetic 1920×832×81
+    clips, then resumed; (b) ``encode_streaming`` against ``encode`` in
+    fp32; (c) ``cli.preprocess_stages`` vae + text on the same clips;
+    (d) one 832×480 clip preprocessed and ``cli.finetune`` taking a
+    t2v-1.3B step on it; (e) the 14B pipeline's decodes of a 1920×832×81
+    latent beside the DiT and a 1920×1072×81 one with the DiT parked, then
+    an r1 request with the DiT back."""
+    import importlib.util
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune, preprocess, preprocess_stages
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models import vae as vaem
+    from moviigen_tpu_torch.models.tokenizer import load_tokenizer
+    from moviigen_tpu_torch.models.vae_streaming import encode_streaming
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("cv2", "imageio", "decord", "torchcodec")}
+    log(f"phase 10: video modules installed {found}")
+    cfg = WAN_CONFIGS[PRE_TASK]
+    tokenizer = load_tokenizer(cfg.t5_tokenizer, seq_len=cfg.model.text_len,
+                               vocab_size=cfg.t5.vocab_size)
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "pre"
+    shutil.rmtree(root, ignore_errors=True)
+    merge = _write_clips(root, [(PRE_FRAMES, PRE_H, PRE_W)] * PRE_CLIPS, 0)
+    out = root / "out"
+    latent_shape = (cfg.vae.z_dim, (PRE_FRAMES - 1) // 4 + 1, PRE_H // 8,
+                    PRE_W // 8)
+    row = dict(task=PRE_TASK, clips=PRE_CLIPS, frames=PRE_FRAMES,
+               size=f"{PRE_W}*{PRE_H}", modules=found)
+
+    # (a) the one-pass CLI at its defaults, then resumed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_json = preprocess.main(["--data_merge_path", merge,
+                                "--output_dir", str(out),
+                                "--task", PRE_TASK])
+    torch.cuda.synchronize()
+    row["run_s"] = time.perf_counter() - t0
+    row["run_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats = json.loads((out / "preprocess_stats_shard0.json").read_text())
+    items = json.loads(pathlib.Path(out_json).read_text())
+    if stats["errors"] or stats["processed"] != PRE_CLIPS \
+            or len(items) != PRE_CLIPS or len(stats["vae_s"]) != PRE_CLIPS:
+        raise RuntimeError(f"preprocess: stats {stats}, {len(items)} items")
+    one_pass = _read_outputs(out, items, latent_shape, cfg.t5.dim, tokenizer)
+    row.update({k: stats[k] for k in ("encode_dtype", "vae_s", "t5_s",
+                                      "vae_peak_gib")})
+    t0 = time.perf_counter()
+    preprocess.main(["--data_merge_path", merge, "--output_dir", str(out),
+                     "--task", PRE_TASK])
+    row["resume_s"] = time.perf_counter() - t0
+    stats = json.loads((out / "preprocess_stats_shard0.json").read_text())
+    latest = json.loads((out / "videos2caption_latest.json").read_text())
+    if stats["errors"] or stats["vae_s"] or len(latest) != PRE_CLIPS:
+        raise RuntimeError(f"preprocess resume: stats {stats}, "
+                           f"{len(latest)} items")
+    log("phase 10a: " + json.dumps(row))
+    torch.cuda.empty_cache()
+
+    # (b) streaming against full-tensor encode, fp32
+    gen = torch.Generator(device=DEVICE).manual_seed(42)
+    vae = vaem.init_params(cfg.vae, gen, device=DEVICE, encoder=True)
+    video = torch.rand((1, 3, PRE_CHECK_FRAMES, PRE_CHECK_H, PRE_CHECK_W),
+                       generator=gen, device=DEVICE) * 2 - 1
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = vaem.encode(vae, video, cfg.vae)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stream = encode_streaming(vae, video, cfg.vae)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    _, err = rel_err(stream, full)
+    check = dict(frames=PRE_CHECK_FRAMES,
+                 size=f"{PRE_CHECK_W}*{PRE_CHECK_H}", dtype="float32",
+                 rel_err=err, tol=PRE_STREAM_REL_TOL, full_s=full_s,
+                 stream_s=stream_s, shape=list(full.shape))
+    log("phase 10b: " + json.dumps(check))
+    if not err <= PRE_STREAM_REL_TOL:
+        raise RuntimeError(f"streaming encode: rel err {err}")
+    row["streaming_check"] = check
+    del vae, video, full, stream
+    torch.cuda.empty_cache()
+
+    # (c) the split stages on the same clips: the same files
+    stages = root / "stages"
+    t0 = time.perf_counter()
+    temp_json = preprocess_stages.main(["vae", "--data_merge_path", merge,
+                                        "--output_dir", str(stages),
+                                        "--task", PRE_TASK])
+    final_json = preprocess_stages.main(["text", "--json_path", temp_json,
+                                         "--output_dir", str(stages),
+                                         "--task", PRE_TASK])
+    row["stages_s"] = time.perf_counter() - t0
+    split = _read_outputs(stages, json.loads(
+        pathlib.Path(final_json).read_text()), latent_shape, cfg.t5.dim,
+        tokenizer)
+    if split.keys() != one_pass.keys():
+        raise RuntimeError(f"stages wrote {sorted(split)}, the one-pass "
+                           f"CLI {sorted(one_pass)}")
+    for name, (lat, emb) in split.items():
+        if not (np.array_equal(lat, one_pass[name][0])
+                and np.array_equal(emb, one_pass[name][1])):
+            raise RuntimeError(f"stages: {name} differs from the one-pass "
+                               f"CLI's (latent max diff "
+                               f"{np.abs(lat - one_pass[name][0]).max()})")
+    log(f"phase 10c: split stages equal to the one-pass CLI in "
+        f"{row['stages_s']:.1f} s")
+    shutil.rmtree(root)
+
+    # (d) fine-tuning reads the port's own caches
+    merge = _write_clips(root, [(PRE_FRAMES, PRE_FT_H, PRE_FT_W)], 1)
+    t0 = time.perf_counter()
+    out_json = preprocess.main(["--data_merge_path", merge, "--output_dir",
+                                str(out), "--task", PRE_TASK,
+                                "--crop_height", str(PRE_FT_H),
+                                "--crop_width", str(PRE_FT_W)])
+    row["finetune_preprocess_s"] = time.perf_counter() - t0
+    items = json.loads(pathlib.Path(out_json).read_text())
+    _read_outputs(out, items, (cfg.vae.z_dim, latent_shape[1],
+                               PRE_FT_H // 8, PRE_FT_W // 8),
+                  cfg.t5.dim, tokenizer)
+    torch.cuda.empty_cache()
+    record = finetune.main([
+        "--task", TRAIN_TASK, "--device", DEVICE,
+        "--data_json_path", str(out / "videos2caption_latest.json"),
+        "--num_latent_t", str(latent_shape[1]), "--gradient_checkpointing",
+        "--max_train_steps", "1", "--checkpointing_steps", "1000",
+        "--output_dir", str(root / "train"), "--seed", "0"])
+    loss = record["loss"]
+    if record["step"] != 1 or not np.isfinite(loss).all():
+        raise RuntimeError(f"finetune on the port's caches: step "
+                           f"{record['step']}, loss {loss}")
+    row.update(finetune_loss=loss, finetune_step_s=record["step_s"])
+    log(f"phase 10d: t2v-1.3B step on the port's caches, loss {loss}")
+    del record
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    report["preprocess"] = row
+    phase_big_decode(report)
+
+
+def phase_big_decode(report):
+    """(e) With the t2v-14B DiT, the umT5-XXL and the VAE resident, the
+    pipeline's decode stage of two 81-frame requests: 1920×832, whose
+    decode fits beside the DiT (``decode_gib`` under FREE_DIT_DECODE_GIB),
+    and 1920×1072, which parks the DiT in host memory first; then an r1
+    request brings the DiT back, its launches counted as in phase 4."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.pipelines.text2video import (
+        FREE_DIT_DECODE_GIB, WanT2V, compute_target_shape_and_seq_len,
+        decode_gib)
+
+    config = WAN_CONFIGS[PRE_TASK]
+    pipe = WanT2V(config, device=DEVICE)
+    rows = []
+    for w, h in ((PRE_W, PRE_H), (1920, 1072)):
+        target_shape, _, _ = compute_target_shape_and_seq_len(
+            config, (w, h), PRE_FRAMES)
+        latent = torch.randn((1, *target_shape), device=DEVICE,
+                             generator=torch.Generator(device=DEVICE)
+                             .manual_seed(3))
+        estimate = decode_gib(latent.shape, config.vae)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        pipe.timings = {}
+        t0 = time.perf_counter()
+        video = pipe.decode_request(latent)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after = torch.cuda.memory_allocated() / 2**30
+        row = dict(size=f"{w}*{h}", frames=PRE_FRAMES,
+                   decode_gib_estimate=estimate,
+                   threshold_gib=FREE_DIT_DECODE_GIB, parked=pipe.dit_parked,
+                   resident_gib=resident, peak_gib=peak,
+                   decode_own_gib=peak - after,
+                   dit_park_s=pipe.timings.get("dit_park_s"),
+                   decode_s=pipe.timings["decode_s"], total_s=total_s)
+        if pipe.dit_parked != (estimate > FREE_DIT_DECODE_GIB):
+            raise RuntimeError(f"big decode {w}*{h}: parked "
+                               f"{pipe.dit_parked} at {estimate:.2f} GiB")
+        if video.shape != (3, PRE_FRAMES, h, w) \
+                or not np.isfinite(video).all() or np.abs(video).max() > 1.0:
+            raise RuntimeError(f"big decode {w}*{h}: video {video.shape}")
+        del video, latent
+        log("phase 10e: " + json.dumps(row))
+        rows.append(row)
+    if not pipe.dit_parked:
+        raise RuntimeError("big decode: no decode parked the DiT")
+
+    name, frames, steps, solver = REQUESTS[0]
+    fa.reset_launch_counts()
+    video = pipe.generate(PROMPT, size=(832, 480), frame_num=frames,
+                          sampling_steps=steps, sample_solver=solver, seed=42)
+    launches = fa.launch_counts()["launches"]
+    expected = steps * 2 * config.model.num_layers  # batched CFG at r1
+    _serve_checks(name, video, frames)
+    if pipe.dit_parked or "dit_unpark_s" not in pipe.timings:
+        raise RuntimeError("the request after the big decode did not bring "
+                           "the DiT back")
+    if launches != expected:
+        raise RuntimeError(f"{name} after the big decode: flash kernel "
+                           f"launched {launches} times, expected {expected}")
+    after = dict(request=name, launches=launches,
+                 dit_unpark_s=pipe.timings["dit_unpark_s"],
+                 step_s=pipe.timings["step_s"],
+                 decode_s=pipe.timings["decode_s"])
+    log("phase 10e: next request " + json.dumps(after))
+    report["big_decode"] = dict(decodes=rows, after=after)
+    del pipe
+    torch.cuda.empty_cache()
+
 
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
-          9: phase_quant_profile}
+          9: phase_quant_profile, 10: phase_preprocess}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10",
                     help="comma-separated phases to run (default: all "
                          "but the profiles, 5, 7 and 9)")
     args = ap.parse_args(argv)

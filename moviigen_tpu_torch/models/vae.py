@@ -1,9 +1,9 @@
-"""Wan 3D causal VAE decoder in PyTorch.
+"""Wan 3D causal VAE in PyTorch: encoder and decoder.
 
-Counterpart of ``moviigen_tpu/models/vae.py::decode`` (ref
-``wan/modules/vae.py`` Decoder3d): 8×8 spatial, 4× temporal
-decompression, causal 3D convolutions throughout, full-tensor temporal
-ops equivalent to the reference's streaming caches.
+Counterpart of ``moviigen_tpu/models/vae.py::encode`` and ``::decode``
+(ref ``wan/modules/vae.py`` Encoder3d / Decoder3d): 8×8 spatial, 4×
+temporal compression, causal 3D convolutions throughout, full-tensor
+temporal ops equivalent to the reference's streaming caches.
 
 Layout: NCDHW inside (``[B, C, T, H, W]``, PyTorch's convolution
 layout), which is also the public layout. Parameters are a nested dict of
@@ -113,6 +113,28 @@ def attention_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     return conv2d(p["proj"], out) + x
 
 
+def _spatial_down(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """ZeroPad2d((0, 1, 0, 1)), right and bottom only, then a stride-2
+    VALID 3×3 conv per frame (ref vae.py:87-94)."""
+    b, c, t, h, w = x.shape
+    xf = F.pad(x.transpose(1, 2).reshape(b * t, c, h, w), (0, 1, 0, 1))
+    out = F.conv2d(xf, p["weight"].to(x.dtype), None, stride=2)
+    out = out + p["bias"].to(x.dtype).view(1, -1, 1, 1)
+    return out.reshape(b, t, -1, *out.shape[2:]).transpose(1, 2)
+
+
+def downsample3d_time(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Temporal stride-2 conv with a first-frame bypass and no time padding
+    — the full-tensor equivalent of the streaming cache path (ref
+    vae.py:143-159). Under 3 frames the conv has no window: the first
+    frame alone comes out."""
+    first = x[:, :, :1]
+    if x.shape[2] < p["weight"].shape[2]:
+        return first
+    rest = causal_conv3d(p, x, stride=(2, 1, 1), time_pad=0, space_pad=0)
+    return torch.cat([first, rest], dim=2)
+
+
 def _spatial_up(p: Params, x: torch.Tensor) -> torch.Tensor:
     """2× nearest upsample + 3×3 conv C→C/2 (ref vae.py:76-83)."""
     up = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
@@ -139,6 +161,25 @@ def _interleave_time(y: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, c2 // 2, 2 * t, h, w)
 
 
+def encoder(p: Params, x: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    """Encoder3d (ref vae.py:265-366). x: [B, 3, T, H, W] →
+    [B, 2·z, T', H/8, W/8]."""
+    h = causal_conv3d(p["conv1"], x)
+    for stage in p["down"]:
+        for rb in stage["res"]:
+            h = residual_block(rb, h)
+        if "downsample" in stage:
+            ds = stage["downsample"]
+            h = _spatial_down(ds["conv"], h)
+            if "time_conv" in ds:
+                h = downsample3d_time(ds["time_conv"], h)
+    h = residual_block(p["mid_res1"], h)
+    h = attention_block(p["mid_attn"], h)
+    h = residual_block(p["mid_res2"], h)
+    h = vae_rms_norm(p["head_norm"], h)
+    return causal_conv3d(p["head_conv"], F.silu(h))
+
+
 def decoder(p: Params, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
     """Decoder3d (ref vae.py:369-472). z: [B, z, T', H', W'] →
     [B, 3, T, 8H', 8W']."""
@@ -158,13 +199,36 @@ def decoder(p: Params, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
     return causal_conv3d(p["head_conv"], F.silu(h))
 
 
+def _latent_stats(z: torch.Tensor, cfg: VAEConfig):
+    """The published per-channel mean and std, shaped to broadcast over
+    ``z`` ([B, z, T, H, W]) in its dtype."""
+    return tuple(torch.tensor(v[:cfg.z_dim], dtype=z.dtype,
+                              device=z.device).view(1, -1, 1, 1, 1)
+                 for v in (LATENT_MEAN, LATENT_STD))
+
+
 def denormalize_latents(z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
     """z·std + mean per latent channel ([B, z, T, H, W])."""
-    mean = torch.tensor(LATENT_MEAN[:cfg.z_dim], dtype=z.dtype,
-                        device=z.device).view(1, -1, 1, 1, 1)
-    std = torch.tensor(LATENT_STD[:cfg.z_dim], dtype=z.dtype,
-                       device=z.device).view(1, -1, 1, 1, 1)
+    mean, std = _latent_stats(z, cfg)
     return z * std + mean
+
+
+def normalize_latents(h: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    """The encoder's ``conv1`` output [B, 2·z, T, H, W] → the normalized
+    posterior mean (mu − mean) · (1 / std), as the JAX package computes
+    it (vae.py:256-259)."""
+    mu = h[:, :cfg.z_dim]
+    mean, std = _latent_stats(mu, cfg)
+    return (mu - mean) * (1.0 / std)
+
+
+def encode(params: Params, video: torch.Tensor,
+           cfg: VAEConfig) -> torch.Tensor:
+    """Video [B, 3, T, H, W] in [-1, 1] → normalized latents
+    [B, z, T', H/8, W/8] in the video's dtype: the deterministic
+    posterior mean (ref WanVAE_.encode, vae.py:516-542)."""
+    h = encoder(params["encoder"], video, cfg)
+    return normalize_latents(causal_conv3d(params["conv1"], h), cfg)
 
 
 def decode(params: Params, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
@@ -175,7 +239,7 @@ def decode(params: Params, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# initialization (decoder side: what serving runs)
+# initialization
 # --------------------------------------------------------------------------
 
 

@@ -4,8 +4,10 @@ Counterpart of ``moviigen_tpu/pipelines/text2video.py::WanT2V`` (ref
 ``wan/text2video.py``): umT5 text encoding, the CFG-guided flow-matching
 denoise loop around the DiT with UniPC (default) or DPM++, and the causal
 3D VAE decode. Everything lives on one device; the 14B DiT (28 GB bf16),
-the umT5-XXL encoder (11.6 GB) and the VAE fit one 80 GB card together,
-so nothing is offloaded, quantized or not. Weights are random (made from
+the umT5-XXL encoder (11.6 GB) and the VAE fit one 80 GB card together.
+Only a decode that needs over ``FREE_DIT_DECODE_GIB`` does not fit beside
+them: ``generate`` then parks the DiT in host memory for the
+decode, and the next request brings it back. Weights are random (made from
 ``init_seed``), read from a checkpoint directory in the reference layout
 (``checkpoint_dir``), or carried from a JAX parameter tree with
 ``convert``.
@@ -40,7 +42,7 @@ from ..models import vae as vaem
 from ..models.t5 import T5Encoder, load_t5_checkpoint
 from ..models.tokenizer import load_tokenizer
 from ..models.vae_convert import load_vae_checkpoint
-from ..models.vae_streaming import decode_streaming
+from ..models.vae_streaming import decode_streaming, default_chunk_frames
 from ..models.wan_convert import SHARD_PATTERN, load_wan_checkpoint
 from ..models.wan_model import QUANT_MODES, WanModel
 from ..ops.quantization import (load_quantized_checkpoint,
@@ -52,6 +54,27 @@ from ..ops.rope import rope_3d_freqs
 # Output pixels (frames × H × W) above which the decode streams over
 # latent-frame chunks instead of decoding the clip as one tensor.
 STREAMING_DECODE_PIXELS = 2 ** 24
+
+# Device memory the VAE decode takes above what is resident, GiB per 1e6
+# output pixels it holds at once (decode_pixels_at_once), for the Wan VAE
+# in bf16: one tensor 1.79, streaming 3.93 (a chunk's conv caches, and the
+# cache frames concatenated before each conv). tools/vae_decode_memory.py
+# on an NVIDIA H100 80GB HBM3 at 700 W, within 2 % over 480p to 1920×1072.
+DECODE_GIB_PER_MPX = {"full": 1.79, "stream": 3.93}
+
+# Decode memory (decode_gib) above which generate() parks the DiT in host
+# memory before the VAE decode, as the JAX package frees it above its
+# FREE_DIT_DECODE_PIXELS (text2video.py:97, 780-787: 40e6 pixels of the
+# whole clip, for 16 GB chips) and the reference moves it with
+# model.cpu(). The decode's memory follows the pixels it holds at once,
+# not the clip's. On the H100 80GB (79.18 GiB usable) t2v-14B, umT5-XXL
+# and the VAE keep 38.0 GiB resident, so 41 GiB is free beside them; the
+# value keeps 11 GiB of that for the allocator's fragmentation after the
+# denoise: the largest decode seen to fit beside the DiT took 28 GiB
+# (1280×720×81, before the streaming caches were copies). 1920×832×81
+# (25.1 GiB) keeps the DiT, 1920×1072×81 (32.3 GiB) parks it.
+# Module-level so tests can lower it.
+FREE_DIT_DECODE_GIB = 30.0
 
 # In the quant modes a umT5 whose bf16 weights pass this size is quantized
 # weight-only with the DiT (the JAX pipeline's rule, text2video.py:268-272;
@@ -75,6 +98,45 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     return device
+
+
+def decode_streams(t: int, h: int, w: int) -> bool:
+    """Whether the decode of T' latent frames to H × W streams."""
+    return (1 + (t - 1) * 4) * h * w > STREAMING_DECODE_PIXELS
+
+
+def decode_pixels_at_once(latent_shape, vae_cfg) -> int:
+    """Output pixels one pass of the decode of a latent [..., T', H', W']
+    holds: the whole clip when it is decoded as one tensor, else one
+    streaming chunk (``default_chunk_frames`` latent frames, 4 output
+    frames each)."""
+    t, h, w = latent_shape[-3], latent_shape[-2] * 8, latent_shape[-1] * 8
+    if not decode_streams(t, h, w):
+        return (1 + (t - 1) * 4) * h * w
+    return 4 * default_chunk_frames(t, h, w, vae_cfg) * h * w
+
+
+def decode_gib(latent_shape, vae_cfg) -> float:
+    """The decode's device memory above what is resident, GiB, for a
+    latent [..., T', H', W'] (DECODE_GIB_PER_MPX of its path)."""
+    t, h, w = latent_shape[-3], latent_shape[-2] * 8, latent_shape[-1] * 8
+    path = "stream" if decode_streams(t, h, w) else "full"
+    return DECODE_GIB_PER_MPX[path] * decode_pixels_at_once(
+        latent_shape, vae_cfg) / 1e6
+
+
+@torch.no_grad()
+def decode_video(vae_params, latent: torch.Tensor,
+                 config: PipelineConfig) -> torch.Tensor:
+    """Latents [B, z, T', H', W'] → video [B, 3, T, H, W], decoded in the
+    config's decode dtype and returned as fp32; streams above
+    STREAMING_DECODE_PIXELS output pixels."""
+    z = latent.to(getattr(torch, config.vae_decode_dtype))
+    if decode_streams(z.shape[2], z.shape[3] * 8, z.shape[4] * 8):
+        out = decode_streaming(vae_params, z, config.vae)
+    else:
+        out = vaem.decode(vae_params, z, config.vae)
+    return out.float()
 
 
 def compute_target_shape_and_seq_len(config: PipelineConfig,
@@ -147,6 +209,7 @@ class WanT2V:
                 tok_path = config.t5_tokenizer
         self.t5.eval()
         self.dit.eval()
+        self.dit_parked = False  # the DiT is in host memory (generate())
         self.tokenizer = load_tokenizer(
             tok_path, seq_len=config.model.text_len,
             clean="whitespace", vocab_size=config.t5.vocab_size)
@@ -304,18 +367,9 @@ class WanT2V:
 
     @torch.no_grad()
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
-        """Latents [B, z, T', H', W'] → video [B, 3, T, H, W], decoded in
-        the config's decode dtype and returned as fp32; streams above
-        STREAMING_DECODE_PIXELS output pixels."""
-        cfg = self.config
-        z = latent.to(getattr(torch, cfg.vae_decode_dtype))
-        t, h, w = z.shape[2], z.shape[3] * 8, z.shape[4] * 8
-        frames = 1 + (t - 1) * 4
-        if frames * h * w > STREAMING_DECODE_PIXELS:
-            out = decode_streaming(self.vae_params, z, cfg.vae)
-        else:
-            out = vaem.decode(self.vae_params, z, cfg.vae)
-        return out.float()
+        """Latents [B, z, T', H', W'] → video [B, 3, T, H, W] fp32
+        (``decode_video``)."""
+        return decode_video(self.vae_params, latent, self.config)
 
     @torch.no_grad()
     def generate(self, input_prompt: str,
@@ -334,7 +388,8 @@ class WanT2V:
         Returns [C, F, H, W] numpy float32 in [-1, 1], or the final latent
         [z, F', H', W'] with ``return_latents``. ``noise`` replaces the
         seeded initial latent. Per-phase seconds land in ``self.timings``
-        (t5_s, step_s list, decode_s)."""
+        (t5_s, step_s list, decode_s; dit_unpark_s when the previous
+        request parked the DiT, dit_park_s when this one does)."""
         cfg = self.config
         target_shape, seq_len, grid = compute_target_shape_and_seq_len(
             cfg, size, frame_num)
@@ -344,6 +399,7 @@ class WanT2V:
             seed = int.from_bytes(os.urandom(4), "little")
         timings = {"step_s": []}
         self.timings = timings
+        self.unpark_dit()
 
         t0 = time.perf_counter()
         ctx_pair = self.encode_text([input_prompt, n_prompt])
@@ -403,8 +459,33 @@ class WanT2V:
         if return_latents:
             return latent[0].cpu().numpy()
 
+        return self.decode_request(latent)
+
+    def unpark_dit(self) -> None:
+        """Move a DiT parked by the last decode back to the device
+        (dit_unpark_s in ``self.timings``); nothing when it is there."""
+        if not self.dit_parked:
+            return
+        t0 = time.perf_counter()
+        self.dit.to(self.device)
+        self.dit_parked = False
+        self._sync()
+        self.timings["dit_unpark_s"] = time.perf_counter() - t0
+
+    def decode_request(self, latent: torch.Tensor) -> np.ndarray:
+        """A request's last stage: park the DiT when the decode needs over
+        FREE_DIT_DECODE_GIB (``decode_gib``), then decode
+        ``latent`` [1, z, T', H', W'] → [C, F, H, W] numpy; dit_park_s and
+        decode_s land in ``self.timings``."""
+        if decode_gib(latent.shape, self.config.vae) > FREE_DIT_DECODE_GIB:
+            t0 = time.perf_counter()
+            self.dit.to("cpu")  # gives its device memory back to the cache
+            self.dit_parked = True
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self.timings["dit_park_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         video = self.decode(latent)
         self._sync()
-        timings["decode_s"] = time.perf_counter() - t0
+        self.timings["decode_s"] = time.perf_counter() - t0
         return video[0].cpu().numpy()

@@ -31,7 +31,10 @@ def test_importing_the_port_loads_no_jax():
                 "models.wan_convert", "diffusion.flow_match", "training",
                 "training.train_step", "training.data",
                 "training.checkpoint", "cli.finetune", "ops.quantization",
-                "ops.int8_gemm", "models.vae_convert"):
+                "ops.int8_gemm", "models.vae_convert", "data",
+                "data.video_reader", "data.transforms", "data.t2v_dataset",
+                "cli.preprocess", "cli.preprocess_stages",
+                "cli.video_tools"):
         assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

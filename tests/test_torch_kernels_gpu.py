@@ -498,3 +498,66 @@ def test_quantize_kernel_refuses_what_it_does_not_take(cuda):
         tq.quantize_activations(torch.zeros(1, 32776, device="cuda"))
     with pytest.raises(ValueError, match="is on cpu"):
         tq.quantize_activations_cuda(torch.zeros(4, 64))
+
+
+# ------------------------------------------------ VAE encode, DiT parking
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 5e-2)])
+def test_vae_encode_streaming_equals_full_on_cuda(cuda, dtype, tol):
+    """The streaming encode (first frame, then chunks of 4) against the
+    full-tensor encode at the Wan VAE's width, on the card. fp32 with TF32
+    off: the same convs over other frame groupings differ by fp32
+    rounding, far under 1e-3 of the latents' scale. bf16: cuDNN may pick
+    other algorithms for the chunk shapes, so bf16 roundings (2^-8) land
+    differently over the ~25 layers; 5e-2 bounds that (the CPU test's
+    bound against JAX). A lost or doubled cache frame is off by O(1)."""
+    from moviigen_tpu_torch.configs import VAEConfig
+    from moviigen_tpu_torch.models import vae as tvae
+    from moviigen_tpu_torch.models.vae_streaming import encode_streaming
+
+    cfg = VAEConfig()
+    params = tvae.init_params(cfg, cuda, device="cuda", encoder=True)
+    video = (torch.rand((1, 3, 9, 64, 96), generator=cuda, device="cuda")
+             * 2 - 1).to(dtype)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            full = tvae.encode(params, video, cfg)
+            stream = encode_streaming(params, video, cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert full.shape == stream.shape == (1, cfg.z_dim, 3, 8, 12)
+    assert full.dtype == stream.dtype == dtype
+    scale = full.float().abs().max()
+    assert (stream.float() - full.float()).abs().max() <= tol * scale
+
+
+def test_pipeline_parks_the_dit_on_cuda(cuda, monkeypatch):
+    """Over FREE_DIT_DECODE_GIB the DiT's weights leave the card for
+    the decode and come back for the next request, which gives the video
+    of a pipeline that never parked it."""
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.pipelines import text2video as t2v
+
+    def make():
+        return t2v.WanT2V(WAN_CONFIGS["t2v-tiny"], device="cuda",
+                          attn_backend="plain")
+
+    kw = dict(size=(64, 64), frame_num=5, sampling_steps=2, seed=3)
+    want = make().generate("a cat", **kw)
+    pipe = make()
+    shape, _, _ = t2v.compute_target_shape_and_seq_len(
+        pipe.config, kw["size"], kw["frame_num"])
+    gib = t2v.decode_gib(shape, pipe.config.vae)
+    monkeypatch.setattr(t2v, "FREE_DIT_DECODE_GIB", gib * 0.99)
+    pipe.generate("a dog", **kw)
+    assert pipe.dit_parked
+    assert all(p.device.type == "cpu" for p in pipe.dit.parameters())
+    monkeypatch.setattr(t2v, "FREE_DIT_DECODE_GIB", gib)
+    got = pipe.generate("a cat", **kw)
+    assert not pipe.dit_parked and "dit_unpark_s" in pipe.timings
+    assert all(p.device.type == "cuda" for p in pipe.dit.parameters())
+    assert (got == want).all()

@@ -108,3 +108,85 @@ def test_cfg_batching_rule():
     shape, seq_len, grid = t2v.compute_target_shape_and_seq_len(
         WAN_CONFIGS["t2v-14B"], (832, 480), 45)
     assert (shape, seq_len, grid) == ((16, 12, 60, 104), 18720, (12, 30, 52))
+
+
+def test_big_decode_parks_the_dit_and_the_next_request_brings_it_back(
+        monkeypatch):
+    """The JAX package's rule for big decodes (FREE_DIT_DECODE_GIB,
+    lowered here to t2v-tiny's sizes): a request over it moves the DiT to
+    host memory before its decode; the next request moves it back and
+    gives, bit for bit, the video of a pipeline that never parked it; a
+    request at the threshold keeps the DiT where it is."""
+    kw = dict(size=(64, 64), frame_num=5, sampling_steps=2, seed=3)
+    want = WanT2V(WAN_CONFIGS["t2v-tiny"], device="cpu").generate(
+        "a cat", **kw)
+    pipe = WanT2V(WAN_CONFIGS["t2v-tiny"], device="cpu")
+    shape, _, _ = t2v.compute_target_shape_and_seq_len(
+        pipe.config, kw["size"], kw["frame_num"])
+    gib = t2v.decode_gib(shape, pipe.config.vae)
+    moves = []
+    real_to = pipe.dit.to
+    monkeypatch.setattr(pipe.dit, "to",
+                        lambda dev: moves.append(str(dev)) or real_to(dev))
+    monkeypatch.setattr(t2v, "FREE_DIT_DECODE_GIB", gib * 0.99)
+    pipe.generate("a dog", **kw)
+    assert pipe.dit_parked and moves == ["cpu"]
+    assert "dit_park_s" in pipe.timings
+    monkeypatch.setattr(t2v, "FREE_DIT_DECODE_GIB", gib)
+    got = pipe.generate("a cat", **kw)
+    assert not pipe.dit_parked and moves == ["cpu", "cpu"]
+    assert "dit_unpark_s" in pipe.timings and "dit_park_s" not in pipe.timings
+    np.testing.assert_array_equal(got, want)
+    pipe.generate("a cat", **kw)
+    assert not pipe.dit_parked and len(moves) == 2
+
+
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    return WanT2V(WAN_CONFIGS["t2v-tiny"], device="cpu")
+
+
+@pytest.mark.parametrize("frames,at_once,parks",
+                         [(9, 8, False), (17, 16, True), (33, 16, True)])
+def test_parking_reads_the_pixels_the_decode_holds_at_once(
+        tiny_pipe, monkeypatch, frames, at_once, parks):
+    """With t2v-tiny's 64×64 clips streaming (STREAMING_DECODE_PIXELS
+    lowered), the decode holds one chunk of output frames: 17 and 33
+    frames hold the same 16 and both park at a threshold under 16 frames'
+    memory, though 33 frames are twice the pixels; 9 frames hold 8 and
+    keep the DiT."""
+    pipe = tiny_pipe
+    monkeypatch.setattr(t2v, "STREAMING_DECODE_PIXELS", 64 * 64)
+    shape, _, _ = t2v.compute_target_shape_and_seq_len(
+        pipe.config, (64, 64), frames)
+    assert t2v.decode_pixels_at_once(shape, pipe.config.vae) \
+        == at_once * 64 * 64
+    monkeypatch.setattr(t2v, "FREE_DIT_DECODE_GIB", 12 * 64 * 64 / 1e6
+                        * t2v.DECODE_GIB_PER_MPX["stream"])
+    latent = torch.from_numpy(np.random.default_rng(frames)
+                              .standard_normal((1, *shape))
+                              .astype(np.float32))
+    pipe.timings = {}
+    video = pipe.decode_request(latent)
+    assert video.shape == (3, frames, 64, 64) and np.isfinite(video).all()
+    assert pipe.dit_parked == parks
+    assert ("dit_park_s" in pipe.timings) == parks
+    pipe.unpark_dit()
+    assert not pipe.dit_parked
+
+
+@pytest.mark.parametrize("w,h,frames,gib,parks", [
+    (832, 480, 81, 6.28, False), (1280, 720, 81, 14.49, False),
+    (1920, 832, 81, 25.11, False), (1920, 832, 61, 25.11, False),
+    (1920, 1072, 81, 32.36, True), (1920, 1072, 45, 32.36, True),
+    (832, 480, 33, 23.59, False), (1920, 832, 9, 25.73, False)])
+def test_parking_rule_at_t2v_14b_sizes(w, h, frames, gib, parks):
+    """The rule at the published sizes: the streaming decode's memory is
+    one chunk's whatever the length (1920×832 at 61 and 81 frames alike),
+    a short clip decoded as one tensor counts at the lower rate, and only
+    1920×1072 parks the DiT on the 80 GB card."""
+    cfg = WAN_CONFIGS["t2v-14B"]
+    shape, _, _ = t2v.compute_target_shape_and_seq_len(cfg, (w, h), frames)
+    got = t2v.decode_gib(shape, cfg.vae)
+    assert got == pytest.approx(gib, abs=0.01)
+    assert (got > t2v.FREE_DIT_DECODE_GIB) == parks
