@@ -47,7 +47,21 @@ Phases:
     preprocessed and ``cli.finetune`` taking a t2v-1.3B step on the port's
     own caches; (e) the t2v-14B pipeline's decode of a 1920×832×81 latent
     beside the DiT and of a 1920×1072×81 one with the DiT parked in host
-    memory, then a request with it back.
+    memory, then a request with it back;
+11. the LoRA path: (k) the stats forward, dKV and dQ kernels at the 14B's
+    width (40 heads) and 32,760 tokens, against their plain twins and
+    SDPA; (a) ``cli.finetune --task t2v-14B --use_lora --quant int8
+    --gradient_checkpointing --export_safetensors``, 3 QLoRA steps at full
+    width and depth and 32,760 tokens, launches counted, every adapter
+    moved and the base bit-equal, the adapter-only checkpoint and the peft
+    export read back; (b) the adapter gradients of a 2-block 14B over an
+    int8 base through the kernels against the plain attention; (c) the
+    2-block W8A8 14B DiT with adapters, kernel path against plain, and
+    detached back to the base bit for bit; (d) ``cli.finetune --task
+    t2v-1.3B --use_lora --compute_ot --train_batch_size 2``, the card's
+    OT permutation against a float64 brute force on the host; (e)
+    ``cli.valid_training --once`` rendering with (a)'s adapters on a 14B
+    base.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -377,19 +391,21 @@ def _check(name, what, got, want, tol):
     return max_abs, rel
 
 
-def train_kernel_cases(report):
+def train_kernel_cases(report, cases=None, heads=TRAIN_HEADS,
+                       key="train_cases", phase="2"):
     """The stats forward and the two backward kernels at the training
-    shapes, each against its plain twin on the same inputs; SDPA's
-    forward and backward as the library yardstick."""
+    shapes (``cases``, default TRAIN_CASES, at ``heads`` heads), each
+    against its plain twin on the same inputs; SDPA's forward and backward
+    as the library yardstick. Rows land in ``report[key]``."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
-    for i, (name, kind, b, lq, lk, fracs) in enumerate(TRAIN_CASES):
+    for i, (name, kind, b, lq, lk, fracs) in enumerate(cases or TRAIN_CASES):
         gen = torch.Generator(device=DEVICE).manual_seed(100 + i)
-        q, k, v = (torch.randn(b, l, TRAIN_HEADS, HEAD_DIM, generator=gen,
+        q, k, v = (torch.randn(b, l, heads, HEAD_DIM, generator=gen,
                                device=DEVICE, dtype=torch.bfloat16)
                    for l in (lq, lk, lk))
         lk_eff, k_lens = [lk] * b, None
@@ -397,15 +413,14 @@ def train_kernel_cases(report):
             lk_eff = [int(f * lk) for f in fracs]
             k_lens = torch.tensor(lk_eff, dtype=torch.int32, device=DEVICE)
         (fwd_b, fwd_by), (dkv_b, dkv_by), (dq_b, dq_by) = train_bounds(
-            b, lq, lk, lk_eff)
+            b, lq, lk, lk_eff, n=heads)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         mask = None
         if k_lens is not None:
             mask = (torch.arange(lk, device=DEVICE)[None, :]
                     < k_lens[:, None])[:, None, None, :]
-        row = dict(case=name, B=b, Lq=lq, Lk=lk, N=TRAIN_HEADS,
-                   k_lens=lk_eff)
+        row = dict(case=name, B=b, Lq=lq, Lk=lk, N=heads, k_lens=lk_eff)
         want = fa.flash_attention_stats_plain(q, k, v, k_lens)
         if kind == "stats":
             got = fa.flash_attention_stats_cuda(q, k, v, k_lens)
@@ -457,7 +472,7 @@ def train_kernel_cases(report):
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 ot, (qt, kt, vt), dot, retain_graph=True))
             row.update(
-                dkv_query_splits=fa.dkv_query_splits(b, TRAIN_HEADS, lq, lk),
+                dkv_query_splits=fa.dkv_query_splits(b, heads, lq, lk),
                 rel_err={w: e[1] for w, e in errs.items()},
                 max_abs_err={w: e[0] for w, e in errs.items()},
                 dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
@@ -472,15 +487,19 @@ def train_kernel_cases(report):
                     mhz, watts = clocks_under_load(lambda: fn(ops),
                                                    row[f"{key}_ms"])
                     row[f"{key}_sm_mhz"], row[f"{key}_power_w"] = mhz, watts
-            if "cross" in name and row["dkv_query_splits"] < 2:
+            # at 12 heads the cross-attention has too few key blocks to
+            # fill the card, and the query loop must split (at 40 it need
+            # not)
+            if ("cross" in name and heads == TRAIN_HEADS
+                    and row["dkv_query_splits"] < 2):
                 raise RuntimeError(f"{name}: the dKV query loop was not "
                                    "split at a cross-attention shape")
             del ops, dk, dv, dq, wdq, wdk, wdv, ot, do
-        log("phase 2: train " + json.dumps(row))
+        log(f"phase {phase}: train " + json.dumps(row))
         rows.append(row)
         del q, k, v, qt, kt, vt, want
         torch.cuda.empty_cache()
-    report["train_cases"] = rows
+    report[key] = rows
 
 
 def int8_kernel_cases(report):
@@ -635,6 +654,11 @@ def kernels_line(report):
         "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "moviigen_tpu/ops/flash_attention.py:124",
         "launches": report.get("launches", 0),
+        "launches_by_path": {
+            "serving r1 + r2 (phase 4)": report.get("launches", 0),
+            "watcher render (phase 11e)": report.get("watcher_launches", 0),
+            "w8a8 + adapters (phase 11c)": report.get(
+                "lora_w8a8_launches", {}).get("launches", 0)},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"],
         "before_redesign_ms": main["before_redesign_ms"],
@@ -653,6 +677,12 @@ def kernels_line(report):
             "source": "moviigen_tpu_torch/csrc/int8_gemm.cu",
             "replaces": "moviigen_tpu/ops/int8_gemm.py:53",
             "launches": report.get("int8_launches", 0),
+            "launches_by_path": {
+                "q1 (phase 8a)": report.get("int8_launches", 0),
+                "w8a8 + adapters (phase 11c)": report.get(
+                    "lora_w8a8_launches", {}).get("int8_gemm_launches", 0),
+                "qlora (phase 11a)": report.get("qlora_launches", {}).get(
+                    "int8_gemm_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in int8),
             "ms": main8["ms"],
             "before_redesign_ms": main8["before_redesign_ms"],
@@ -671,25 +701,41 @@ def kernels_line(report):
             "replaces": "moviigen_tpu/ops/quantization.py:81 (XLA, not a "
                         "Pallas kernel)",
             "launches": report.get("quantize_launches", 0),
+            "launches_by_path": {
+                "q1 (phase 8a)": report.get("quantize_launches", 0),
+                "w8a8 + adapters (phase 11c)": report.get(
+                    "lora_w8a8_launches", {}).get("quantize_launches", 0),
+                "qlora (phase 11a)": report.get("qlora_launches", {}).get(
+                    "quantize_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in quant),
             "ms": mainq["ms"], "plain_ms": mainq["plain_ms"],
             "bound_ms": mainq["bound_ms"], "bound_by": mainq["bound_by"],
             "library_ms": None, "library": mainq["library"],
             "cases": quant,
         })
-    train = report.get("train_cases")
+    train = report.get("train_cases", []) + report.get("train14_cases", [])
     if not train:
         return {"kernels": entries}
     counts = report.get("train_launches", {})
+
+    def by_path(key):
+        return {"ft (phase 6b)": counts.get(key, 0),
+                "qlora (phase 11a)": report.get("qlora_launches", {}).get(
+                    key, 0),
+                "ot (phase 11d)": report.get("ot_launches", {}).get(key, 0)}
+
     stats = [c for c in train if "kernel" in c]
     bwd = [c for c in train if "kernel" not in c]
-    s, bmain = stats[0], bwd[0]  # self-attention at 32,760 tokens
+    # self-attention at 32,760 tokens: the 1.3B row (N = 12) when phase 2
+    # ran, else the 14B one (N = 40)
+    s, bmain = stats[0], bwd[0]
     entries.append({
         "name": "flash_fwd_stats",
         "route": "cuda",
         "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "moviigen_tpu/ops/flash_attention.py:105",
         "launches": counts.get("stats_launches", 0),
+        "launches_by_path": by_path("stats_launches"),
         "max_abs_err": max(c["max_abs_err"] for c in stats),
         "ms": s["ms"], "before_redesign_ms": s["before_redesign_ms"],
         "plain_ms": s["plain_ms"],
@@ -705,13 +751,14 @@ def kernels_line(report):
             "source": "moviigen_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"moviigen_tpu/ops/flash_attention.py:{line}",
             "launches": counts.get(f"{key}_launches", 0),
+            "launches_by_path": by_path(f"{key}_launches"),
             "max_abs_err": max(c["max_abs_err"][g] for c in bwd
                                for g in grads),
             "ms": bmain[f"{key}_ms"], "plain_ms": bmain["plain_ms"],
             "bound_ms": bmain[f"{key}_bound_ms"],
             "bound_by": bmain[f"{key}_bound_by"],
             "library_ms": bmain["library_ms"],
-            "cases": [{"case": c["case"], "ms": c[f"{key}_ms"],
+            "cases": [{"case": c["case"], "N": c["N"], "ms": c[f"{key}_ms"],
                        "bound_ms": c[f"{key}_bound_ms"],
                        "plain_ms": c["plain_ms"],
                        "library_ms": c["library_ms"],
@@ -1840,15 +1887,555 @@ def phase_big_decode(report):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- LoRA / QLoRA
+
+# The 14B's attention at the fine-tune CLI's default shape (N = 40 heads,
+# 32,760 tokens, B=1) and its 512-key cross-attention, through phase 2's
+# wrappers: the kernels QLoRA runs, at the width no earlier phase timed.
+TRAIN14_HEADS = 40
+TRAIN14_CASES = [
+    ("m_stats_self_N40_L32760", "stats", 1, 32760, 32760, None),
+    ("m2_stats_cross_N40_Lq32760_Lk512", "stats", 1, 32760, 512, None),
+    ("n_bwd_self_N40_L32760", "bwd", 1, 32760, 32760, None),
+    ("o_bwd_cross_N40_Lq32760_Lk512", "bwd", 1, 32760, 512, None),
+]
+LORA_TASK = "t2v-14B"
+LORA_STEPS = 3
+LORA_RANK, LORA_ALPHA = 64, 64
+# Large enough that every adapter moves measurably in 3 steps: AdamW moves
+# each element by about the learning rate a step (B from step 1, A from
+# step 2, once B is non-zero), against A's N(0, 1)/64 init. At 1e-3 the
+# random model's loss grew 4 -> 21 in 3 steps.
+LORA_LR = 2e-4
+LORA_GRAD_LAYERS = 2
+# Adapter gradients, kernels against the plain attention (norm-relative):
+# the backward kernels' bf16 rounding of P and dS (GRAD_REL_TOL), carried
+# through the side paths' bf16 products.
+LORA_GRAD_REL_TOL = GRAD_REL_TOL
+OT_TASK, OT_LATENT, OT_STEPS = "t2v-1.3B", (16, 5, 60, 104), 2
+WATCH_FRAMES, WATCH_STEPS = 17, 2
+
+
+@contextlib.contextmanager
+def live_head():
+    """Inside, ``WanModel.init_weights`` also draws the head (std 0.02)
+    from its generator. A random model's zero head gives every block, and
+    so every adapter, a zero gradient, and a zero prediction with or
+    without adapters; a checkpoint's head is live."""
+    import torch
+
+    from moviigen_tpu_torch.models.wan_model import WanModel
+
+    init = WanModel.init_weights
+
+    def init_live(self, generator):
+        init(self, generator)
+        with torch.no_grad():
+            self.head.weight.normal_(0.0, 0.02, generator=generator)
+        return self
+
+    WanModel.init_weights = init_live
+    try:
+        yield
+    finally:
+        WanModel.init_weights = init
+
+
+def _latent_dataset(root, latent, clips, text_dim, seed):
+    """A synthetic latent set in the reference layout under ``root``."""
+    for d in (root / "latent", root / "prompt_embed"):
+        d.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    annos = []
+    for i in range(clips):
+        np.save(root / "latent" / f"clip{i}.npy",
+                rng.standard_normal(latent, dtype=np.float32))
+        np.save(root / "prompt_embed" / f"clip{i}.npy",
+                rng.standard_normal((PROMPT_LENS[i % len(PROMPT_LENS)],
+                                     text_dim), dtype=np.float32))
+        annos.append({"latent_path": f"clip{i}.npy",
+                      "prompt_embed_path": f"clip{i}.npy",
+                      "length": 81, "aspect_ratio_bin": 0})
+    path = root / "videos2caption.json"
+    path.write_text(json.dumps(annos))
+    return path
+
+
+def phase_qlora(report):
+    """(a) ``cli.finetune --task t2v-14B --use_lora --quant int8
+    --gradient_checkpointing --export_safetensors`` as a user runs it: the
+    full-width, full-depth 14B, its block linears int8 weight-only (random
+    codes made on the card), rank-64 adapters, 3 steps at 32,760 tokens;
+    launches counted, every adapter moved, the base bit-equal to a fresh
+    build from the seed, the checkpoint and the peft export read back."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.training import checkpoint as ck
+    from moviigen_tpu_torch.training.lora import (init_lora_params,
+                                                  lora_state_dict)
+    from moviigen_tpu_torch.utils.safetensors import load_file
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "lora"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = WAN_CONFIGS[LORA_TASK].model
+    data_json = _latent_dataset(root / "data", TRAIN_LATENT, 2,
+                                cfg.text_dim, 0)
+    out_dir = root / "out"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ig.reset_launch_counts()
+    t0 = time.perf_counter()
+    with live_head():
+        record = finetune.main([
+            "--task", LORA_TASK, "--device", DEVICE, "--use_lora",
+            "--quant", "int8", "--gradient_checkpointing",
+            "--export_safetensors", "--lora_rank", str(LORA_RANK),
+            "--lora_alpha", str(LORA_ALPHA),
+            "--learning_rate", str(LORA_LR),
+            "--data_json_path", str(data_json), "--num_latent_t", "21",
+            "--max_train_steps", str(LORA_STEPS),
+            "--checkpointing_steps", "1000", "--output_dir", str(out_dir),
+            "--seed", "0"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = {**fa.launch_counts(), **ig.launch_counts()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    report["qlora_launches"] = counts
+    sites = 2 * cfg.num_layers
+    want = dict.fromkeys(counts, 0)
+    want.update(stats_launches=2 * sites * LORA_STEPS,
+                dkv_launches=sites * LORA_STEPS,
+                dq_launches=sites * LORA_STEPS)
+    losses, gnorms = record["loss"], record["grad_norm"]
+    log(f"phase 11a: QLoRA {LORA_TASK} int8, {LORA_STEPS} steps in "
+        f"{main_s:.1f} s: loss {losses}, grad_norm {gnorms}, step_s "
+        f"{record['step_s']}, peak {peak_gib:.2f} GiB, launches {counts}")
+    if record["step"] != LORA_STEPS or len(losses) != LORA_STEPS:
+        raise RuntimeError(f"qlora: stopped at step {record['step']}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+            and min(gnorms) > 0):
+        raise RuntimeError(f"qlora: loss {losses}, grad_norm {gnorms}")
+    if counts != want:
+        raise RuntimeError(f"qlora: launches {counts}, expected {want}")
+
+    model, adapters, opt = (record["model"], record["adapters"],
+                            record["optimizer"])
+    n_lora = sum(ad.A.numel() + ad.B.numel() for ad in adapters.values())
+    start = init_lora_params(model, rank=LORA_RANK,
+                             generator=torch.Generator(device=DEVICE)
+                             .manual_seed(1))
+    moved = {}
+    for path, ad in adapters.items():
+        for name in ("A", "B"):
+            a = getattr(ad, name).detach()
+            b = getattr(start[path], name).detach()
+            if torch.equal(a, b):
+                raise RuntimeError(f"qlora: {path}.{name} did not move")
+            moved[f"{path}.{name}"] = float((a - b).norm()
+                                            / b.norm().clamp_min(1e-30)) \
+                if name == "A" else float(a.norm())
+    del start
+    with live_head():
+        fresh = WanModel(cfg, dtype=torch.float32, device=DEVICE,
+                         quant="int8").init_weights(
+            torch.Generator(device=DEVICE).manual_seed(0))
+    trained = {k: v for k, v in model.state_dict().items()
+               if ".lora." not in k}
+    base = fresh.state_dict()
+    if set(trained) != set(base) or not all(
+            torch.equal(trained[k], v) for k, v in base.items()):
+        raise RuntimeError("qlora: the frozen base changed")
+    del fresh, base, trained
+
+    path = pathlib.Path(record["checkpoint"])
+    files = {f.name: f.stat().st_size for f in path.iterdir()}
+    saved = load_file(str(path / ck.PARAMS_FILE))
+    named = lora_state_dict(adapters)
+    if set(saved) != set(named) or not all(
+            torch.equal(saved[k], v.detach().cpu()) for k, v in
+            named.items()):
+        raise RuntimeError("qlora: the adapters read back differ")
+    state = torch.load(path / ck.OPT_FILE, map_location="cpu",
+                       weights_only=True)
+    mine = opt.state_dict()
+    if state["count"] != LORA_STEPS or not all(
+            torch.equal(a, b.cpu()) for key in ("m", "v")
+            for a, b in zip(state[key], mine[key])):
+        raise RuntimeError("qlora: the AdamW state read back differs")
+    meta = ck.read_meta(str(path))
+    if {k: meta.get(k) for k in ("lora", "quant", "lora_rank", "lora_alpha",
+                                 "lora_dtype")} != dict(
+            lora=True, quant="int8", lora_rank=LORA_RANK,
+            lora_alpha=LORA_ALPHA, lora_dtype="float32"):
+        raise RuntimeError(f"qlora: meta.json {meta}")
+    peft = ck.lora_from_peft_state_dict(
+        load_file(str(path / ck.LORA_EXPORT_NAME)), device=DEVICE)
+    if set(peft) != set(adapters) or not all(
+            torch.equal(peft[p].A, ad.A) and torch.equal(peft[p].B, ad.B)
+            for p, ad in adapters.items()):
+        raise RuntimeError("qlora: the peft export reads back differently")
+    row = dict(task=LORA_TASK, quant="int8", layers=cfg.num_layers,
+               tokens=32760, rank=LORA_RANK, alpha=LORA_ALPHA, lr=LORA_LR,
+               adapter_params=n_lora, steps=LORA_STEPS,
+               step_s=record["step_s"],
+               step_s_median_2_3=statistics.median(record["step_s"][1:]),
+               loss=losses, grad_norm=gnorms, peak_gib=peak_gib,
+               checkpoint_gib=sum(files.values()) / 2**30,
+               checkpoint_files=files,
+               checkpoint_save_s=record["checkpoint_s"],
+               adapter_moved_min=min(moved.values()),
+               launches=counts, expected_launches=want)
+    log("phase 11a: qlora " + json.dumps(row))
+    report["qlora"] = row
+    report["qlora_out"] = str(out_dir)
+    del record, model, adapters, opt, saved, peft
+    torch.cuda.empty_cache()
+
+
+def _live_adapters(model, gen):
+    """Rank-64 adapters on ``model`` with B drawn too (std 0.01), so that
+    the side paths change the prediction and every dA is non-zero."""
+    import torch
+
+    from moviigen_tpu_torch.training.lora import attach_lora, init_lora_params
+
+    adapters = init_lora_params(model, rank=LORA_RANK, generator=gen)
+    with torch.no_grad():
+        for ad in adapters.values():
+            ad.B.normal_(0.0, 0.01, generator=gen)
+    attach_lora(model, adapters, alpha=LORA_ALPHA, rank=LORA_RANK)
+    return adapters
+
+
+def phase_lora_grads(report):
+    """(b) Adapter gradients of a 2-block t2v-14B at full width over an
+    int8 base, 32,760 tokens, per-block remat: through the kernels against
+    the plain attention, per adapter tensor."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+    from moviigen_tpu_torch.training.lora import (lora_parameters,
+                                                  lora_state_dict)
+
+    cfg = WAN_CONFIGS[LORA_TASK].model.replace(num_layers=LORA_GRAD_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    with live_head():
+        model = WanModel(cfg, dtype=torch.float32, device=DEVICE,
+                         quant="int8").init_weights(gen)
+    model.requires_grad_(False)
+    adapters = _live_adapters(model, gen)
+    names, params = list(lora_state_dict(adapters)), list(
+        lora_parameters(adapters))
+    _, f, h, w = TRAIN_LATENT
+    rope = rope_3d_freqs((f, h // 2, w // 2), cfg.head_dim, device=DEVICE)
+    x = torch.randn(1, *TRAIN_LATENT, generator=gen, device=DEVICE)
+    t = torch.full((1,), 500.0, device=DEVICE)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen,
+                      device=DEVICE)
+    ctx[:, PROMPT_LENS[2]:] = 0.0
+    target = torch.randn(x.shape, generator=gen, device=DEVICE)
+    sites = 2 * LORA_GRAD_LAYERS
+    want_counts = {
+        "auto": dict(launches=0, stats_launches=2 * sites,
+                     dkv_launches=sites, dq_launches=sites),
+        "plain": dict.fromkeys(fa.COUNTERS, 0)}
+    grads = {}
+    for backend in ("auto", "plain"):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = model(x, t, ctx, rope, attn_backend=backend, remat=True)
+        loss = torch.mean(torch.square(pred - target))
+        grads[backend] = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        log(f"phase 11b: {LORA_GRAD_LAYERS}-block t2v-14B int8 + adapters, "
+            f"32,760 tokens, attn={backend}: loss {loss.item():.6f}, "
+            f"forward+backward {time.perf_counter() - t0:.3f} s, launches "
+            f"{counts}")
+        if counts != want_counts[backend]:
+            raise RuntimeError(f"lora grads attn={backend}: launches "
+                               f"{counts}, expected {want_counts[backend]}")
+        del pred, loss
+    errs, zero = {}, []
+    for name, g, w in zip(names, grads["auto"], grads["plain"]):
+        if not bool(w.abs().max() > 0):
+            zero.append(name)
+        errs[name] = float((g - w).norm() / w.norm().clamp_min(1e-30))
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    row = dict(layers=LORA_GRAD_LAYERS, tokens=32760, quant="int8",
+               tensors=len(errs), max_rel_err=worst[0][1],
+               worst=dict(worst[:4]),
+               median_rel_err=statistics.median(errs.values()))
+    log("phase 11b: lora grads " + json.dumps(row))
+    if zero:
+        raise RuntimeError(f"lora grads: all-zero gradients {zero[:4]}")
+    bad = {n: e for n, e in errs.items() if not e <= LORA_GRAD_REL_TOL}
+    if bad:
+        raise RuntimeError(f"lora grads: kernel vs plain past "
+                           f"{LORA_GRAD_REL_TOL} (norm-relative): {bad}")
+    report["lora_grads"] = row
+    del model, adapters, grads, params
+    torch.cuda.empty_cache()
+
+
+def phase_lora_w8a8(report):
+    """(c) Phase 3's depth-cut t2v-14B W8A8 DiT with live adapters: the
+    kernel path (int8 GEMM, activation quantization, flash forward) and
+    the side paths against the plain path; detaching gives the base's
+    output back bit for bit."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.training.lora import detach_lora
+
+    cfg = WAN_CONFIGS["t2v-14B"].model.replace(num_layers=DIT_SMOKE_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    with live_head():
+        model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE,
+                         quant="w8a8").init_weights(gen)
+    with torch.no_grad():
+        x, t, ctx, rope = _dit_inputs(cfg, gen)
+        bare = model(x, t, ctx, rope, seq_len=7800).float()
+        _live_adapters(model, gen)
+        fa.reset_launch_counts()
+        ig.reset_launch_counts()
+        got = model(x, t, ctx, rope, seq_len=7800).float()
+        counts = {**fa.launch_counts(), **ig.launch_counts()}
+        with plain_int8_gemm():
+            want = model(x, t, ctx, rope, seq_len=7800,
+                         attn_backend="plain").float()
+        taken = detach_lora(model)
+        again = model(x, t, ctx, rope, seq_len=7800).float()
+    torch.cuda.synchronize()
+    expected = dict.fromkeys(counts, 0)
+    expected.update(launches=2 * DIT_SMOKE_LAYERS,
+                    int8_gemm_launches=10 * DIT_SMOKE_LAYERS,
+                    quantize_launches=7 * DIT_SMOKE_LAYERS)
+    rel = float((got - want).norm() / want.norm())
+    row = dict(layers=DIT_SMOKE_LAYERS, tokens=7800, adapters=len(taken),
+               rel_norm_err=rel,
+               adapter_effect=float((got - bare).norm() / bare.norm()),
+               detached_equal=bool(torch.equal(again, bare)),
+               launches=counts)
+    log("phase 11c: w8a8 + adapters " + json.dumps(row))
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("w8a8 + adapters: non-finite prediction")
+    if counts != expected:
+        raise RuntimeError(f"w8a8 + adapters: launches {counts}, expected "
+                           f"{expected}")
+    if rel > DIT_REL_TOL:
+        raise RuntimeError(f"w8a8 + adapters: kernel vs plain {rel:.3e} > "
+                           f"{DIT_REL_TOL}")
+    if not row["detached_equal"] or row["adapter_effect"] == 0.0:
+        raise RuntimeError("w8a8 + adapters: detaching did not give the "
+                           "base back, or the adapters changed nothing")
+    report["lora_w8a8"] = row
+    report["lora_w8a8_launches"] = counts
+    del model, taken, got, want, bare, again
+    torch.cuda.empty_cache()
+
+
+def _host_brute_force(latents, noise):
+    """The OT permutation by brute force in float64 on the host."""
+    import itertools
+
+    x = latents.reshape(latents.shape[0], -1).double()
+    y = noise.reshape(noise.shape[0], -1).double()
+    cost = -(x / x.norm(dim=1, keepdim=True)) @ (
+        y / y.norm(dim=1, keepdim=True)).t()
+    n = cost.shape[0]
+    perms = np.array(list(itertools.permutations(range(n))))
+    totals = cost.numpy()[np.arange(n), perms].sum(axis=1)
+    return perms[int(np.argmin(totals))].tolist()
+
+
+def phase_ot(report):
+    """(d) ``cli.finetune --task t2v-1.3B --use_lora --compute_ot
+    --train_batch_size 2``, 2 steps over an fp32 base: the permutation the
+    card chose for each batch equals the host's float64 brute force. The
+    CLI's draws may well pair each latent with its own row; so, at the
+    same latent size, ``ot_pair_noise`` on the card also gets batches of
+    2 and 8 whose latents are shuffled noise rows plus a little noise,
+    where the optimum is the shuffle."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.training import train_step as ts
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "ot"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = WAN_CONFIGS[OT_TASK].model
+    data_json = _latent_dataset(root / "data", OT_LATENT, 4, cfg.text_dim, 1)
+    calls = []
+    pair = ts.ot_pair_noise
+
+    def recorded(latents, noise):
+        out = pair(latents, noise)
+        calls.append(tuple(a.detach().cpu() for a in (latents, noise, out)))
+        return out
+
+    fa.reset_launch_counts()
+    ts.ot_pair_noise = recorded
+    t0 = time.perf_counter()
+    try:
+        with live_head():
+            record = finetune.main([
+                "--task", OT_TASK, "--device", DEVICE, "--use_lora",
+                "--compute_ot", "--train_batch_size", "2",
+                "--gradient_checkpointing", "--learning_rate", str(LORA_LR),
+                "--data_json_path", str(data_json), "--num_latent_t",
+                str(OT_LATENT[1]), "--max_train_steps", str(OT_STEPS),
+                "--checkpointing_steps", "1000",
+                "--output_dir", str(root / "out"), "--seed", "0"])
+    finally:
+        ts.ot_pair_noise = pair
+    main_s = time.perf_counter() - t0
+    report["ot_launches"] = fa.launch_counts()
+    shuffles = []
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for b in (2, 8):
+        noise = torch.randn(b, *OT_LATENT, generator=gen, device=DEVICE)
+        shuffle = torch.randperm(b, generator=gen, device=DEVICE)
+        if b == 2:
+            shuffle = torch.tensor([1, 0], device=DEVICE)
+        latents = noise[shuffle] + 0.1 * torch.randn(
+            noise.shape, generator=gen, device=DEVICE)
+        calls.append(tuple(a.cpu() for a in (
+            latents, noise, pair(latents, noise))))
+        shuffles.append(shuffle.tolist())
+    perms = []
+    for latents, noise, out in calls:
+        chosen = [next(j for j in range(noise.shape[0])
+                       if torch.equal(out[i], noise[j]))
+                  for i in range(out.shape[0])]
+        perms.append((chosen, _host_brute_force(latents, noise)))
+    row = dict(task=OT_TASK, batch=2, tokens=7800, steps=OT_STEPS,
+               seconds=main_s, loss=record["loss"],
+               grad_norm=record["grad_norm"], permutations=perms,
+               shuffles=shuffles, launches=report["ot_launches"])
+    log("phase 11d: ot " + json.dumps(row))
+    if (len(calls) != OT_STEPS + 2 or any(a != b for a, b in perms)
+            or [p[0] for p in perms[-2:]] != shuffles):
+        raise RuntimeError(f"ot: the card's permutations {perms} (card, "
+                           f"host) in {len(calls)} calls")
+    if not np.isfinite(record["loss"]).all():
+        raise RuntimeError(f"ot: loss {record['loss']}")
+    report["ot"] = row
+    del record
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_watcher(report):
+    """(e) ``cli.valid_training --once --task t2v-14B`` over (a)'s output
+    directory with a random bf16 base: the adapter-only checkpoint
+    restored and attached, one 832×480×17 prompt rendered in 2 steps with
+    the forward kernel's launches counted; one DiT forward with the
+    adapters differs from the same forward without them."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import valid_training
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    out_dir = report.get("qlora_out")
+    if out_dir is None:
+        raise RuntimeError("watcher: phase 11a wrote no checkpoint")
+    root = pathlib.Path(out_dir).parent
+    prompts = root / "prompts"
+    prompts.mkdir(exist_ok=True)
+    (prompts / "cats.txt").write_text(PROMPT)
+    config = WAN_CONFIGS[LORA_TASK]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with live_head():
+        record = valid_training.main([
+            "--task", LORA_TASK, "--device", DEVICE, "--once",
+            "--output_dir", out_dir, "--prompt_dir", str(prompts),
+            "--size", "832*480", "--frame_num", str(WATCH_FRAMES),
+            "--sample_steps", str(WATCH_STEPS)])
+    total_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    report["watcher_launches"] = counts["launches"]
+    (render,) = record["renders"]
+    video = render["videos"]["cats"]
+    _serve_checks("watcher", video, WATCH_FRAMES)
+    expected = dict.fromkeys(counts, 0)
+    expected["launches"] = WATCH_STEPS * 2 * config.model.num_layers
+    pipe = record["pipe"]
+    mounted = sum(1 for n, _ in pipe.dit.named_parameters() if ".lora." in n)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    with torch.no_grad():
+        x, t, ctx, rope = _dit_inputs(config.model, gen)
+        with_lora = pipe.dit(x, t, ctx, rope, seq_len=7800).float()
+        taken = pipe.detach_lora()
+        without = pipe.dit(x, t, ctx, rope, seq_len=7800).float()
+        pipe.attach_lora(taken, alpha=LORA_ALPHA, rank=LORA_RANK)
+    effect = float((with_lora - without).norm() / without.norm())
+    row = dict(task=LORA_TASK, size="832*480", frames=WATCH_FRAMES,
+               steps=WATCH_STEPS, lora=render["lora"], step=render["step"],
+               adapters_mounted=mounted // 2, seconds=total_s,
+               step_s=pipe.timings["step_s"],
+               decode_s=pipe.timings["decode_s"],
+               video_std=float(video.std()), adapter_effect=effect,
+               launches=counts, saved=render["saved"])
+    log("phase 11e: watcher " + json.dumps(row))
+    if not render["lora"] or mounted != 2 * 8 * config.model.num_layers:
+        raise RuntimeError(f"watcher: {mounted} adapter tensors mounted")
+    if counts != expected:
+        raise RuntimeError(f"watcher: launches {counts}, expected "
+                           f"{expected}")
+    if not effect > 0.0:
+        raise RuntimeError("watcher: the adapters do not change the DiT")
+    report["watcher"] = row
+    del record, pipe, taken, with_lora, without
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_lora(report):
+    train_kernel_cases(report, TRAIN14_CASES, TRAIN14_HEADS,
+                       key="train14_cases", phase="11k")
+    phase_qlora(report)
+    phase_lora_grads(report)
+    phase_lora_w8a8(report)
+    phase_ot(report)
+    phase_watcher(report)
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
-          9: phase_quant_profile, 10: phase_preprocess}
+          9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11",
                     help="comma-separated phases to run (default: all "
                          "but the profiles, 5, 7 and 9)")
     args = ap.parse_args(argv)

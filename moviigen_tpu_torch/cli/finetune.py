@@ -1,20 +1,28 @@
-"""Fine-tuning CLI of the PyTorch port: full fine-tuning of the t2v DiT on
-one device.
+"""Fine-tuning CLI of the PyTorch port: full or LoRA / QLoRA fine-tuning
+of the t2v DiT on one device.
 
 Counterpart of ``moviigen_tpu/cli/finetune.py`` (ref
 ``scripts/train/finetune.py``): the same flag surface and loop — the
 precomputed-latent dataset, the bucket sampler, the flow-matching step
 with clip, AdamW, LR schedule and grad accumulation, TensorBoard metrics
 when ``tensorboard`` is installed (per-timestep-bin losses included),
-periodic, final and SIGINT/SIGTERM checkpoints, resume. It runs on
+periodic, final and SIGINT/SIGTERM checkpoints, resume, OT noise
+pairing (``--compute_ot``). ``--use_lora`` trains rank-r adapters on the
+attention projections of a frozen base (``training/lora.py``), which
+``--quant int8|int4`` stores weight-only quantized (QLoRA: how the 14B
+trains on one card); checkpoints then hold the adapters alone, and
+``--export_safetensors`` writes them in peft layout. It runs on
 ``--device`` (default ``cuda``; ``--device cpu`` for t2v-tiny on the
 CPU). Flags of later slices of the port are accepted by the parser and
 refused with an error naming the ROADMAP item that brings them.
 
-Example:
+Examples:
     python -m moviigen_tpu_torch.cli.finetune --task t2v-1.3B \\
         --data_json_path data/preprocess/videos2caption.json \\
         --gradient_checkpointing --max_train_steps 6000
+    python -m moviigen_tpu_torch.cli.finetune --task t2v-14B --use_lora \\
+        --quant int8 --gradient_checkpointing --export_safetensors \\
+        --data_json_path data/preprocess/videos2caption.json
 """
 
 from __future__ import annotations
@@ -34,16 +42,6 @@ from ..configs import ATTN_BACKENDS, WAN_CONFIGS
 
 # flag → (value that means "not used", ROADMAP item that brings it)
 LATER_SLICE_FLAGS = {
-    "use_lora": (False, "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
-    "lora_rank": (64, "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
-    "lora_alpha": (64, "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
-    "lora_dtype": ("float32",
-                   "LoRA (ROADMAP queue 1 item 8, training/lora.py)"),
-    "quant": (None, "QLoRA: the quantized base is in (ops/quantization.py), "
-                    "the LoRA adapters it trains are not (ROADMAP queue 1 "
-                    "item 8, training/lora.py)"),
-    "compute_ot": (False, "OT noise pairing (ROADMAP queue 1 item 8, "
-                          "training/ot.py)"),
     "ffn_bwd_chunk": (None, "the memory knobs (ROADMAP queue 1 item 13)"),
     "attn_bwd_chunk": (None, "the memory knobs (ROADMAP queue 1 item 13)"),
     "profile_steps": (0, "utils/profiling.py as torch.profiler (ROADMAP "
@@ -128,6 +126,9 @@ def _validate_args(args) -> None:
             raise NotImplementedError(
                 f"--{flag} is not supported by the PyTorch port yet; it "
                 f"comes with {item}")
+    if args.quant and not args.use_lora:
+        raise SystemExit("--quant requires --use_lora (the packed base is "
+                         "frozen; only adapters train)")
     if args.sp_size != 1:
         raise NotImplementedError(
             "--sp_size > 1 is not supported by the PyTorch port yet; it "
@@ -139,7 +140,8 @@ def _validate_args(args) -> None:
 def main(argv=None) -> dict:
     """Run the fine-tune; returns the run's record: the last step, the
     per-step seconds, losses and grad norms, the final checkpoint's path
-    and the seconds its save took, and the trained model and optimizer."""
+    and the seconds its save took, and the trained model, optimizer and
+    LoRA adapters (None for a full fine-tune)."""
     args = _parse_args(argv)
     _validate_args(args)
     logging.basicConfig(level=logging.INFO,
@@ -150,11 +152,15 @@ def main(argv=None) -> dict:
     from ..ops.rope import rope_3d_freqs
     from ..pipelines.text2video import resolve_device
     from ..training import TrainConfig, make_optimizer, make_train_step
-    from ..training.checkpoint import (latest_checkpoint, restore_checkpoint,
+    from ..training.checkpoint import (LORA_EXPORT_NAME,
+                                       export_lora_safetensors,
+                                       latest_checkpoint, restore_checkpoint,
                                        save_checkpoint)
     from ..training.data import (
         DataLoader, LatentDataset,
         SPAwareAspectRatioLengthBucketDistributedSampler)
+    from ..training.lora import (attach_lora, init_lora_params,
+                                 lora_parameters, lora_state_dict)
 
     device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
@@ -162,16 +168,39 @@ def main(argv=None) -> dict:
     if args.cross_attn_backend:
         mcfg = mcfg.replace(cross_attn_backend=args.cross_attn_backend)
 
-    # ---- model: fp32 master weights, bf16 compute (as the JAX CLI)
+    # ---- model: fp32 master weights, bf16 compute (as the JAX CLI); for
+    # QLoRA the block linears are quantized weight-only as they load, or
+    # made as random codes on the device: the full-precision 14B (56 GB)
+    # never exists there
     if args.ckpt_dir:
         model = load_wan_checkpoint(args.ckpt_dir, mcfg, dtype=torch.float32,
-                                    device=device)
+                                    device=device, quant=args.quant)
     else:
         logging.warning("random-init DiT (no --ckpt_dir)")
-        model = WanModel(mcfg, dtype=torch.float32, device=device)
+        model = WanModel(mcfg, dtype=torch.float32, device=device,
+                         quant=args.quant)
         model.init_weights(torch.Generator(device=device)
                            .manual_seed(args.seed))
+    if args.quant:
+        logging.info("frozen base quantized to %s", args.quant)
     model.train()
+    adapters = None
+    if args.use_lora:
+        # the base is frozen; the adapters (drawn from seed + 1, as the JAX
+        # CLI's PRNGKey(seed + 1)) are the only trainable tensors
+        model.requires_grad_(False)
+        adapters = init_lora_params(
+            model, rank=args.lora_rank, dtype=getattr(torch, args.lora_dtype),
+            generator=torch.Generator(device=device)
+            .manual_seed(args.seed + 1))
+        attach_lora(model, adapters, alpha=args.lora_alpha,
+                    rank=args.lora_rank)
+        trainable = list(lora_parameters(adapters))
+        logging.info("LoRA rank %d alpha %g on %d linears, %d parameters",
+                     args.lora_rank, args.lora_alpha, len(adapters),
+                     sum(p.numel() for p in trainable))
+    else:
+        trainable = list(model.parameters())
 
     # ---- data
     dataset = LatentDataset(args.data_json_path, args.num_latent_t,
@@ -205,11 +234,12 @@ def main(argv=None) -> dict:
         residual_dtype=args.residual_dtype,
         remat_group=args.remat_group,
         grad_accum_steps=args.gradient_accumulation_steps,
+        compute_ot=args.compute_ot,
         lr_scheduler=args.lr_scheduler,
         lr_warmup_steps=args.lr_warmup_steps,
         max_train_steps=args.max_train_steps,
     )
-    opt = make_optimizer(list(model.parameters()), tc)
+    opt = make_optimizer(trainable, tc)
     train_step = make_train_step(
         model, tc, rope, opt,
         generator=torch.Generator(device=device).manual_seed(args.seed))
@@ -222,7 +252,8 @@ def main(argv=None) -> dict:
             found = latest_checkpoint(args.output_dir)
             path = found[0] if found else None
         if path:
-            start_step = restore_checkpoint(path, model, opt)
+            start_step = restore_checkpoint(
+                path, lora_state_dict(adapters) if adapters else model, opt)
             logging.info("resumed from %s at step %d", path, start_step)
 
     # ---- TensorBoard (ref finetune.py:326-327, 641-656), when installed
@@ -234,10 +265,24 @@ def main(argv=None) -> dict:
         writer = SummaryWriter(os.path.join(args.output_dir, "logs"))
 
     def do_save(step, is_final=False):
+        meta = {"final": is_final, "lora": bool(args.use_lora),
+                "quant": args.quant or "none"}
+        if adapters:
+            # what the watcher needs to rebuild the A/B template and apply
+            # the alpha/rank scale when it attaches them to a base
+            meta.update(lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+                        lora_dtype=args.lora_dtype)
         path = save_checkpoint(
-            args.output_dir, step, model, opt,
-            extra_meta={"final": is_final, "lora": False, "quant": "none"},
-            export_safetensors=args.export_safetensors)
+            args.output_dir, step,
+            lora_state_dict(adapters) if adapters else model, opt,
+            extra_meta=meta,
+            export_safetensors=args.export_safetensors and not adapters)
+        if adapters and args.export_safetensors:
+            # the adapters in peft layout (ref save_lora_checkpoint,
+            # finetune.py:501-502), never the full model
+            export_lora_safetensors(os.path.join(path, LORA_EXPORT_NAME),
+                                    adapters, alpha=args.lora_alpha,
+                                    rank=args.lora_rank)
         logging.info("saved checkpoint %s", path)
         return path
 
@@ -299,7 +344,7 @@ def main(argv=None) -> dict:
         signal.signal(signal.SIGTERM, prev_term)
         if writer is not None:
             writer.close()
-    record.update(step=step, model=model, optimizer=opt)
+    record.update(step=step, model=model, optimizer=opt, adapters=adapters)
     logging.info("training done at step %d", step)
     return record
 

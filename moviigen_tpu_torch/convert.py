@@ -12,7 +12,10 @@ checkpoint converters or quantizers. Layouts change on the way:
   marker becomes ``QuantLinear.act8``;
 - conv ``[kt, kh, kw, I, O]`` / ``[kh, kw, I, O]`` → ``[O, I, kt, kh, kw]``
   / ``[O, I, kh, kw]``;
-- block leaves stacked as ``[num_layers, ...]`` → one module per layer.
+- block leaves stacked as ``[num_layers, ...]`` → one module per layer;
+- LoRA adapters ``{"blocks/self_attn/q": {"A": [L, d_in, r], "B": [L, r,
+  d_out]}}`` → one ``LoRAAdapter`` per targeted linear and layer, A and B
+  in the same [d_in, r] / [r, d_out] layout.
 
 ``wan_params_tree`` and ``t5_params_tree`` go the other way (torch
 tensors in the JAX layout): the quantized caches on disk are such trees,
@@ -180,6 +183,61 @@ def wan_params_tree(model: WanModel) -> Dict[str, Any]:
         "head": {"head": _linear_leaf(model.head),
                  "modulation": model.head_modulation.detach()},
     }
+
+
+def lora_params_to_torch(lora: Dict[str, Any]):
+    """The JAX LoRA tree (``training/lora.py::init_lora_params``:
+    ``{"blocks/self_attn/q": {"A": [L, d_in, r], "B": [L, r, d_out]}}``)
+    → the port's adapters (``{"blocks.{i}.self_attn.q": LoRAAdapter}``,
+    block by block in the order of ``DEFAULT_TARGETS``), in the tree's
+    dtype, on the CPU."""
+    from .training.lora import DEFAULT_TARGETS, LoRAAdapter
+
+    adapters = {}
+    stacks = {}
+    for base, ab in lora.items():
+        head, _, suffix = base.partition("/")
+        if head != "blocks":
+            raise ValueError(f"LoRA target {base!r} is not a block linear")
+        a, b = to_torch(ab["A"]), to_torch(ab["B"])
+        if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
+            raise ValueError(f"{base}: A {tuple(a.shape)} and B "
+                             f"{tuple(b.shape)} are not stacked layers")
+        stacks[suffix.replace("/", ".")] = (a, b)
+    order = [t.partition("/")[2].replace("/", ".") for t in DEFAULT_TARGETS]
+    stacks = dict(sorted(stacks.items(), key=lambda kv: (
+        order.index(kv[0]) if kv[0] in order else len(order), kv[0])))
+    layers = {a.shape[0] for a, _ in stacks.values()}
+    if len(layers) != 1:
+        raise ValueError(f"LoRA targets stack different layer counts: "
+                         f"{sorted(layers)}")
+    for i in range(layers.pop()):
+        for suffix, (a, b) in stacks.items():
+            ad = LoRAAdapter(a.shape[1], b.shape[2], a.shape[2], a.dtype)
+            _set(ad.A, a[i])
+            _set(ad.B, b[i])
+            adapters[f"blocks.{i}.{suffix}"] = ad
+    return adapters
+
+
+def lora_params_tree(adapters) -> Dict[str, Any]:
+    """The port's adapters as the JAX LoRA tree of tensors (inverse of
+    ``lora_params_to_torch``): A and B stacked over the blocks, in the
+    adapters' dtype."""
+    per_target: Dict[str, Dict[int, Any]] = {}
+    for path, ad in adapters.items():
+        _, layer, suffix = path.split(".", 2)
+        per_target.setdefault(f"blocks/{suffix.replace('.', '/')}", {})[
+            int(layer)] = ad
+    tree = {}
+    for base, layers in per_target.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{base}: adapters on layers {sorted(layers)}, "
+                             "not on every block")
+        ads = [layers[i] for i in range(len(layers))]
+        tree[base] = {"A": torch.stack([ad.A.detach() for ad in ads]),
+                      "B": torch.stack([ad.B.detach() for ad in ads])}
+    return tree
 
 
 def load_t5_params(model: T5Encoder, params: Dict[str, Any]) -> T5Encoder:

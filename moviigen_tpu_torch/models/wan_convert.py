@@ -24,6 +24,8 @@ import torch
 
 from ..configs import WanModelConfig
 from ..utils.safetensors import load_sharded, save_file
+from ..ops.quantization import (QuantLinear, quantize_linear,
+                                quantize_linear_int4)
 from .census import TrackedStateDict
 from .wan_model import WanModel
 
@@ -85,12 +87,19 @@ def load_wan_state_dict(model: WanModel, sd: Mapping[str, torch.Tensor],
                         strict: bool = True) -> WanModel:
     """Copy a reference-layout state dict into ``model`` (each tensor cast
     to its parameter's dtype and device). ``strict`` refuses keys that no
-    parameter consumes; a missing key always raises."""
+    parameter consumes; a missing key always raises. A block linear that
+    is a ``QuantLinear`` (``WanModel(quant=...)``) is quantized as it
+    loads, from its weight cast to the model's linear dtype, so the
+    full-precision model never exists on the device."""
     cfg = model.cfg
     tracked = TrackedStateDict(sd, f"WanModel[{cfg.model_type}] checkpoint")
     params = dict(model.named_parameters())
     for ref, port, ref_shape in wan_key_map(cfg):
         value = tracked[ref]
+        if port not in params:  # a QuantLinear's weight or bias
+            owner, _, attr = port.rpartition(".")
+            _load_quantized(model.get_submodule(owner), attr, value, ref)
+            continue
         param = params[port]
         want = ref_shape or tuple(param.shape)
         if tuple(value.shape) != tuple(want):
@@ -101,6 +110,25 @@ def load_wan_state_dict(model: WanModel, sd: Mapping[str, torch.Tensor],
     if strict:
         tracked.check_all_consumed()
     return model
+
+
+def _load_quantized(lin: QuantLinear, attr: str, value: torch.Tensor,
+                    ref: str) -> None:
+    want = (lin.out_features, lin.in_features) if attr == "weight" \
+        else (lin.out_features,)
+    if tuple(value.shape) != want:
+        raise ValueError(f"checkpoint key {ref!r}: shape "
+                         f"{tuple(value.shape)}, the config needs {want}")
+    if attr == "bias":
+        lin.bias.copy_(value)
+        return
+    w = value.to(lin.scale.device, lin.bias.dtype)
+    if lin.bits == 8:
+        q, scale = quantize_linear(w)
+    else:
+        q, scale = quantize_linear_int4(w, lin.group)
+    lin.qweight.copy_(q)
+    lin.scale.copy_(scale)
 
 
 def wan_params_to_state_dict(model: WanModel) -> Dict[str, torch.Tensor]:
@@ -116,15 +144,18 @@ def wan_params_to_state_dict(model: WanModel) -> Dict[str, torch.Tensor]:
 
 def load_wan_checkpoint(ckpt_dir: str, cfg: WanModelConfig,
                         dtype: torch.dtype = torch.bfloat16,
-                        device=None, strict: bool = True) -> WanModel:
+                        device=None, strict: bool = True,
+                        quant: Optional[str] = None) -> WanModel:
     """A ``WanModel`` with the weights of the
     ``diffusion_pytorch_model*.safetensors`` shards in ``ckpt_dir``
     (the diffusers ``from_pretrained`` layout). Linear weights are
-    ``dtype``; the fp32 islands stay fp32, as in ``WanModel``."""
+    ``dtype``; the fp32 islands stay fp32, as in ``WanModel``. With
+    ``quant`` the block linears are quantized one by one as they load
+    (``load_wan_state_dict``)."""
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"checkpoint dir {ckpt_dir} does not exist")
     sd = load_sharded(ckpt_dir, SHARD_PATTERN)
-    model = WanModel(cfg, dtype=dtype, device="meta")
+    model = WanModel(cfg, dtype=dtype, device="meta", quant=quant)
     model = model.to_empty(device=device or "cpu")
     return load_wan_state_dict(model, sd, strict=strict)
 

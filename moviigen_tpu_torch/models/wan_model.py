@@ -41,17 +41,26 @@ QUANT_MODES = (None, "int8", "int4", "w8a8")
 _FUSE_BYTES_LIMIT = 1 << 30
 
 
+def _lora_side(lin: nn.Module, x: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+    """``out`` plus the rank-r side path of the adapter mounted on ``lin``
+    (``training/lora.py::attach_lora``), if any: the JAX ``_lora_side``
+    (wan_model.py:160-171), run after every base GEMM that carries one."""
+    adapter = lin._modules.get("lora")
+    return out if adapter is None else adapter.side(x, out)
+
+
 def _dense(lin: nn.Module, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ W^T + b with x and the weights cast to ``dtype`` (default: the
     weight dtype) — the JAX ``_dense`` (wan_model.py:174-223). A
     ``QuantLinear`` dequantizes its weight first or, marked W8A8, runs the
-    int8 GEMM."""
+    int8 GEMM. A mounted LoRA adapter adds its side path after."""
     if isinstance(lin, QuantLinear):
-        return lin(x, dtype)
+        return _lora_side(lin, x, lin(x, dtype))
     cd = dtype or lin.weight.dtype
     bias = None if lin.bias is None else lin.bias.to(cd)
-    return F.linear(x.to(cd), lin.weight.to(cd), bias)
+    return _lora_side(lin, x, F.linear(x.to(cd), lin.weight.to(cd), bias))
 
 
 def _dense_multi(lins, x: torch.Tensor,
@@ -62,7 +71,8 @@ def _dense_multi(lins, x: torch.Tensor,
     is quantized once for the group, and each GEMM adds its bias in fp32
     before the cast. The projections stay separate GEMMs sharing the
     quantized input (the JAX package concatenates the weights to widen
-    the product; per column that is the same sum)."""
+    the product; per column that is the same sum). Each output then gets
+    its linear's LoRA side path, if one is mounted."""
     tokens = x.numel() // x.shape[-1]
     total_out = sum(lin.out_features for lin in lins)
     if (2 * tokens * total_out > _FUSE_BYTES_LIMIT
@@ -72,9 +82,9 @@ def _dense_multi(lins, x: torch.Tensor,
     cd = dtype or torch.bfloat16
     xq, sx = quantize_activations(x)
     xq, sx = xq.reshape(tokens, -1), sx.reshape(tokens)
-    return [int8_gemm_fused(xq, lin.qweight, sx, lin.scale, lin.bias,
-                            out_dtype=cd).reshape(*x.shape[:-1], -1)
-            for lin in lins]
+    return [_lora_side(lin, x, int8_gemm_fused(
+        xq, lin.qweight, sx, lin.scale, lin.bias,
+        out_dtype=cd).reshape(*x.shape[:-1], -1)) for lin in lins]
 
 
 def _block_linear(cin: int, cout: int, dtype, device, quant) -> nn.Module:

@@ -183,7 +183,7 @@ class QuantLinear(nn.Module):
             raise ValueError("int4 packing needs even input dim, got "
                              f"{in_features}")
         self.in_features, self.out_features = in_features, out_features
-        self.bits, self.act8 = bits, act8
+        self.bits, self.act8, self.group = bits, act8, group
         groups = in_features // group if in_features % group == 0 else 1
         if bits == 8:
             qshape, sshape, qdtype = (out_features, in_features), \

@@ -17,7 +17,9 @@ for an encoder above ``_T5_OFFLOAD_BYTES``, the umT5 weight-only. With a
 checkpoint directory the quantized trees are cached beside the
 checkpoint as safetensors in the JAX package's layout and names, with a
 fingerprint of the source files, and later starts load the cache;
-prompt embeddings are cached there too.
+prompt embeddings are cached there too. LoRA adapters can be mounted on
+the DiT and taken off again (``attach_lora`` / ``detach_lora``; the
+validation watcher ``cli/valid_training.py`` renders with them).
 """
 
 from __future__ import annotations
@@ -227,6 +229,24 @@ class WanT2V:
                 f"quant={quant if self._quant_t5 else None};"
                 f"len={config.model.text_len};"
                 f"tok={type(self.tokenizer).__name__}")
+
+    def attach_lora(self, adapters, alpha: float = 64.0,
+                    rank: int = 64) -> None:
+        """Mount LoRA adapters (``training/lora.py``) on the DiT, moved to
+        its device: every later request runs their side path after each
+        targeted linear, under any ``quant`` (W8A8 after the int8 GEMM)."""
+        from ..training.lora import attach_lora
+
+        for ad in adapters.values():
+            ad.to(self.device)
+        attach_lora(self.dit, adapters, alpha=alpha, rank=rank)
+
+    def detach_lora(self):
+        """Take the adapters off the DiT; returns them. The DiT is then
+        the base it was, bit for bit."""
+        from ..training.lora import detach_lora
+
+        return detach_lora(self.dit)
 
     def _load_checkpoint(self, checkpoint_dir, t5_bits, t5_dtype, dtype):
         """The three models from a checkpoint directory in the reference

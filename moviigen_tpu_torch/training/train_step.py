@@ -24,7 +24,8 @@ same gradients give the same parameters:
   micro-batch gradients, one update per cycle; the logged grad_norm stays
   the raw micro-batch norm (train_step.py:192-196).
 
-The state lives in fp32 beside each parameter and is updated in place.
+The state lives beside each parameter, in its dtype as in optax, and
+is updated in place.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from ..diffusion.flow_match import (compute_density_for_timestep_sampling,
                                     sigmas_for_timesteps, train_schedule)
 from ..models.wan_model import WanModel
 from ..ops.rope import RopeTables
+from .ot import ot_pair_noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +110,19 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _as(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: a weak-typed scalar meeting an array of
+    that dtype in optax (for bf16, 0.999 becomes 1.0)."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm, adamw)``, wrapped in
     ``MultiSteps`` when ``tc.grad_accum_steps`` > 1, over a list of
-    parameters (updated in place)."""
+    parameters (updated in place). As in optax, the moments, the
+    accumulated gradient and every step of the update are in each
+    parameter's own dtype, the scalars rounded to it: fp32 for the full
+    model, bf16 for ``--lora_dtype bfloat16`` adapters."""
 
     def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
         self.params: List[torch.Tensor] = list(params)
@@ -119,10 +130,9 @@ class AdamW:
         self.lr = lr_schedule(tc)
         self.count = 0      # updates applied (the adam and schedule count)
         self.mini_step = 0  # micro-batches accumulated in this cycle
-        f32 = dict(dtype=torch.float32)
-        self.m = [torch.zeros_like(p, **f32) for p in self.params]
-        self.v = [torch.zeros_like(p, **f32) for p in self.params]
-        self.acc = ([torch.zeros_like(p, **f32) for p in self.params]
+        self.m = [torch.zeros_like(p) for p in self.params]
+        self.v = [torch.zeros_like(p) for p in self.params]
+        self.acc = ([torch.zeros_like(p) for p in self.params]
                     if tc.grad_accum_steps > 1 else None)
 
     @torch.no_grad()
@@ -135,7 +145,7 @@ class AdamW:
         if k > 1:
             n = self.mini_step
             for a, g in zip(self.acc, grads):
-                a.copy_(a + (g.float() - a) / (n + 1))
+                a.copy_(a + (g.to(a.dtype) - a) / _as(n + 1, a.dtype))
             self.mini_step = (n + 1) % k
             if n != k - 1:
                 return False
@@ -157,14 +167,16 @@ class AdamW:
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
         for p, g, m, v in zip(self.params, grads, self.m, self.v):
-            g = g.float()
+            dt = p.dtype
+            g = g.to(dt)
             if clip:
-                g = g / norm * tc.max_grad_norm
-            m.mul_(b1).add_(g * (1 - b1))
-            v.mul_(b2).add_(g * g * (1 - b2))
-            u = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
-            u.add_(p.float() * tc.weight_decay)
-            p.copy_(p.float() + u * -lr)
+                g = g / norm.to(dt) * _as(tc.max_grad_norm, dt)
+            m.mul_(_as(b1, dt)).add_(g * _as(1 - b1, dt))
+            v.mul_(_as(b2, dt)).add_(g * g * _as(1 - b2, dt))
+            u = (m / _as(bc1, dt)) / (torch.sqrt(v / _as(bc2, dt))
+                                      + _as(tc.eps, dt))
+            u.add_(p * _as(tc.weight_decay, dt))
+            p.copy_(p + u * _as(-lr, dt))
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mini_step": self.mini_step,
@@ -194,16 +206,16 @@ def make_train_step(model: WanModel, tc: TrainConfig, rope: RopeTables,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     generator: Optional[torch.Generator] = None):
     """Returns ``step(batch, noise=None, u=None) → metrics``: one
-    micro-batch through loss, gradients and ``optimizer`` (which updates
-    ``model`` in place). ``batch`` holds ``latents`` [B, C, F, H, W] and
-    ``context`` [B, text_len, text_dim]; noise and the density draw u come
-    from ``generator`` unless given (the tests hand in JAX's draws).
+    micro-batch through loss, gradients and ``optimizer``, which updates
+    its parameters in place: the model's, or the LoRA adapters mounted on
+    it over a frozen base. Only the optimizer's parameters get gradients.
+    ``batch`` holds ``latents`` [B, C, F, H, W] and ``context``
+    [B, text_len, text_dim]; noise and the density draw u come from
+    ``generator`` unless given (the tests hand in JAX's draws). With
+    ``tc.compute_ot`` the noise, drawn or given, is paired to the latents
+    by ``ot_pair_noise`` first.
     Metrics: ``loss``, ``grad_norm`` (raw micro-batch norm) and
     ``timestep_mean``, as 0-dim tensors."""
-    if tc.compute_ot:
-        raise NotImplementedError(
-            "compute_ot (optimal-transport noise pairing) comes with the "
-            "LoRA/OT part of ROADMAP queue 1 item 8")
     sigmas_tab = train_schedule(tc.num_train_timesteps, tc.schedule_shift)[0]
     rdt = getattr(torch, tc.residual_dtype)
     params = optimizer.params
@@ -217,6 +229,8 @@ def make_train_step(model: WanModel, tc: TrainConfig, rope: RopeTables,
         if noise is None:
             noise = torch.randn(latents.shape, generator=generator,
                                 device=latents.device, dtype=torch.float32)
+        if tc.compute_ot:  # after the noise draw, before the density draw
+            noise = ot_pair_noise(latents, noise)
         if u is None:
             u = compute_density_for_timestep_sampling(
                 generator, tc.weighting_scheme, latents.shape[0],

@@ -34,7 +34,8 @@ def test_importing_the_port_loads_no_jax():
                 "ops.int8_gemm", "models.vae_convert", "data",
                 "data.video_reader", "data.transforms", "data.t2v_dataset",
                 "cli.preprocess", "cli.preprocess_stages",
-                "cli.video_tools"):
+                "cli.video_tools", "training.lora", "training.ot",
+                "cli.valid_training"):
         assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

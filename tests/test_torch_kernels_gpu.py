@@ -561,3 +561,100 @@ def test_pipeline_parks_the_dit_on_cuda(cuda, monkeypatch):
     assert not pipe.dit_parked and "dit_unpark_s" in pipe.timings
     assert all(p.device.type == "cuda" for p in pipe.dit.parameters())
     assert (got == want).all()
+
+
+# ---------------------------------------------------------- LoRA on the card
+
+
+def _lora_dit(gen, quant):
+    """A 2-block DiT at head_dim 128 (what the kernels take) with a live
+    head, its base frozen, and live adapters attached (B ≠ 0)."""
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.training import lora
+
+    cfg = WAN_CONFIGS["t2v-tiny"].model.replace(dim=256, num_heads=2,
+                                                ffn_dim=512)
+    model = WanModel(cfg, dtype=torch.float32, device="cuda",
+                     quant=quant).init_weights(gen)
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.1, generator=gen)
+    model.requires_grad_(False)
+    adapters = lora.init_lora_params(model, rank=8, generator=gen)
+    with torch.no_grad():
+        for ad in adapters.values():
+            ad.B.normal_(0.0, 0.1, generator=gen)
+    lora.attach_lora(model, adapters, alpha=16.0, rank=8)
+    return cfg, model, adapters
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_lora_adapter_grads_on_cuda_match_plain(cuda, quant):
+    """The adapters' gradients through the attention kernels (stats
+    forward, dKV, dQ; per-block remat) against the plain attention, over
+    a frozen fp32 or int8 QLoRA base: 3e-2 of each gradient's norm
+    (chip_smoke.py's PARAM_GRAD_REL_TOL: bf16 rounding in attention,
+    rounded again by every later bf16 product). Every adapter gets a
+    gradient, the base none."""
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+    from moviigen_tpu_torch.training.lora import lora_parameters
+
+    cfg, model, adapters = _lora_dit(cuda, quant)
+    params = list(lora_parameters(adapters))
+    x = torch.randn(1, cfg.in_dim, 3, 16, 16, generator=cuda, device="cuda")
+    t = torch.full((1,), 500.0, device="cuda")
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=cuda,
+                      device="cuda")
+    target = torch.randn(x.shape, generator=cuda, device="cuda")
+    rope = rope_3d_freqs((3, 8, 8), cfg.head_dim, device="cuda")
+    grads = {}
+    for backend in ("auto", "plain"):
+        tfa.reset_launch_counts()
+        pred = model(x, t, ctx, rope, attn_backend=backend, remat=True)
+        loss = torch.mean(torch.square(pred - target))
+        grads[backend] = torch.autograd.grad(loss, params)
+        counts = tfa.launch_counts()
+        sites = 2 * cfg.num_layers
+        assert counts == (dict(launches=0, stats_launches=2 * sites,
+                               dkv_launches=sites, dq_launches=sites)
+                          if backend == "auto"
+                          else dict.fromkeys(tfa.COUNTERS, 0))
+    for g, w in zip(grads["auto"], grads["plain"]):
+        assert bool(w.abs().max() > 0)
+        assert float((g - w).norm() / w.norm()) <= 3e-2
+    assert all(p.grad is None for p in model.parameters())
+
+
+def test_w8a8_lora_side_path_on_cuda(cuda):
+    """W8A8 linears with adapters on the card: ``_dense`` and the shared-
+    input ``_dense_multi`` run the int8 GEMM and the activation
+    quantization, then each output's side path; equal to the same steps
+    through the plain int8 GEMM and quantization, bit for bit (the kernels
+    are, and the side path is the same code)."""
+    from moviigen_tpu_torch.models import wan_model as wm
+
+    _, model, _ = _lora_dit(cuda, "w8a8")
+    attn = model.blocks[0].self_attn
+    x = torch.randn(2, 77, 256, generator=cuda, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def plain(lin, xq, sx, after):
+        out = tig.int8_gemm_plain(xq.reshape(-1, 256), lin.qweight,
+                                  sx.reshape(-1), lin.scale, lin.bias,
+                                  bias_after_cast=after).reshape(2, 77, -1)
+        return lin.lora.side(x, out)
+
+    xq, sx = tq.quantize_activations_plain(x)
+    with torch.no_grad():
+        tig.reset_launch_counts()
+        got = wm._dense_multi([attn.q, attn.k, attn.v], x, torch.bfloat16)
+        assert tig.launch_counts() == {"int8_gemm_launches": 3,
+                                       "quantize_launches": 1}
+        for lin, g in zip((attn.q, attn.k, attn.v), got):
+            assert torch.equal(g, plain(lin, xq, sx, False))
+        one = wm._dense(attn.o, x, torch.bfloat16)
+        assert torch.equal(one, plain(attn.o, xq, sx, True))
+        bare = attn.o.lora
+        del attn.o.lora
+        assert not torch.equal(wm._dense(attn.o, x, torch.bfloat16), one)
+        attn.o.lora = bare

@@ -511,8 +511,7 @@ def test_finetune_cli_end_to_end(tiny_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--use_lora"], ["--quant", "int8"], ["--lora_rank", "8"],
-    ["--compute_ot"], ["--sp_size", "2"], ["--ffn_bwd_chunk", "64"],
+    ["--sp_size", "2"], ["--ffn_bwd_chunk", "64"],
     ["--attn_bwd_chunk", "64"], ["--profile_steps", "2"],
 ])
 def test_finetune_cli_refuses_later_slices(flag, tiny_dataset):
