@@ -7,11 +7,14 @@ NVIDIA Hopper card.
 
 Phases:
  1. setup: card name and power limit, TF32 off, build the CUDA kernels
-    (``flash_fwd``, ``flash_bwd``, ``int8_gemm`` and ``quantize_act``, and
+    (``flash_fwd``, ``flash_bwd``, ``int8_gemm``, ``quantize_act`` and
+    ``flash_fwd_f32``, and
     the earlier ``mma.sync`` designs of the forward and of the int8 GEMM
     as their yardsticks, one ``nvcc`` each, in parallel);
  2. each kernel against its plain PyTorch version on the card, at the
-    shapes of the serving, the training and the W8A8 path, with times,
+    shapes of the serving (the i2v image cross-attention's 257 keys
+    included), the CLIP's fp32 attention, the training and the W8A8 path,
+    with times,
     bounds and the library yardsticks (the forward, its stats variant and
     the int8 GEMM also beside their design before the Hopper redesign, and
     with SM clock and power under load at the main shapes);
@@ -61,7 +64,14 @@ Phases:
     t2v-1.3B --use_lora --compute_ot --train_batch_size 2``, the card's
     OT permutation against a float64 brute force on the host; (e)
     ``cli.valid_training --once`` rendering with (a)'s adapters on a 14B
-    base.
+    base;
+12. the i2v path: (a) the fp32 ViT-H/14 CLIP tower (31 blocks) through
+    the fp32 kernel against plain attention; (b) the i2v-14B DiT at full
+    width (2 blocks) with y and clip_fea, kernel path against plain, then
+    W8A8 against the plain int8 GEMM; (c) ``cli.generate --task i2v-14B
+    --image`` at full width and depth, one 832×480×17 request in 4 steps,
+    launches counted; (d) ``cli.preprocess --dataset i2v`` on one
+    synthetic 832×480×81 clip.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -96,6 +106,7 @@ GEMM_BEFORE_SOURCE = FWD_BEFORE_SOURCE.parent / f"{GEMM_BEFORE}.cu"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # Main-path shapes at t2v-14B: 832*480, 17 frames -> 7,800 tokens (batched
@@ -110,7 +121,22 @@ FLASH_CASES = [
     ("d_self_B1_L18720", 1, 18720, 18720, None),
     ("e_self_B1_L32760", 1, 32760, 32760, None),
     ("f_cross_B1_Lq32760_Lk512", 1, 32760, 512, None),
+    # the i2v DiT's image cross-attention: 257 CLIP tokens, so the last
+    # 128-key tile holds one real key
+    ("p_imgcross_B2_Lq7800_Lk257", 2, 7800, 257, None),
 ]
+# The fp32 forward (the CLIP tower's attention) at its shapes: ViT-H/14 at
+# one image (257 tokens, 16 heads of 80), and a ragged Lq with k_lens
+# inside the last key tile. Both versions are full fp32 (TF32 off) and
+# differ only in the order of their sums, a few fp32 ulps of the output's
+# scale; 1e-5 of it bounds that, a wrong tile, mask or scale is off by
+# O(1).
+F32_CASES = [
+    # name, B, Lq, Lk, N, D, k_lens (None = no mask)
+    ("q_clip_B1_L257_N16_D80", 1, 257, 257, 16, 80, None),
+    ("r_klens_B2_Lq200_Lk257_N16_D80", 2, 200, 257, 16, 80, (257, 130)),
+]
+F32_REL_TOL = 1e-5
 # Kernel vs plain, both bf16 out: bf16 keeps 8 mantissa bits (step
 # 2^-8 = 3.9e-3 of the value); each side rounds its output once (<= half
 # a step) and P is rounded to bf16 relative to a running max that moves
@@ -373,8 +399,56 @@ def phase_kernels(report):
         del q, k, v, got, want, err
         torch.cuda.empty_cache()
     report["flash_cases"] = cases
+    f32_kernel_cases(report)
     train_kernel_cases(report)
     int8_kernel_cases(report)
+
+
+def f32_kernel_cases(report):
+    """The fp32 forward (``csrc/flash_fwd_f32.cu``) at the CLIP's shapes
+    against its plain twin (TF32 off), with its bound on the card's fp32
+    rate and fp32 SDPA as the library yardstick."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, (name, b, lq, lk, n, d, lens) in enumerate(F32_CASES):
+        gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
+        q, k, v = (torch.randn(b, l, n, d, generator=gen, device=DEVICE)
+                   for l in (lq, lk, lk))
+        lk_eff = list(lens) if lens is not None else [lk] * b
+        k_lens = None if lens is None else torch.tensor(
+            lens, dtype=torch.int32, device=DEVICE)
+        got = fa.flash_attention_f32_cuda(q, k, v, k_lens)
+        want = fa.flash_attention_plain(q, k, v, k_lens)
+        torch.cuda.synchronize()
+        max_abs, rel = _check(name, "out", got, want, F32_REL_TOL)
+        keys = sum(lk_eff)
+        bound_ms, bound_by = _bound(4.0 * n * lq * d * keys,
+                                    4.0 * n * d * (2 * b * lq + 2 * keys),
+                                    peak_ops=PEAK_FP32_FLOPS)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None
+        if k_lens is not None:
+            mask = (torch.arange(lk, device=DEVICE)[None, :]
+                    < k_lens[:, None])[:, None, None, :]
+        row = dict(case=name, B=b, Lq=lq, Lk=lk, N=n, D=d, k_lens=lk_eff,
+                   max_abs_err=max_abs, rel_err=rel,
+                   ms=cuda_ms(lambda: fa.flash_attention_f32_cuda(
+                       q, k, v, k_lens), iters=50, warmup=5),
+                   plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
+                       q, k, v, k_lens), iters=50, warmup=5),
+                   library_ms=cuda_ms(lambda: sdpa(qt, kt, vt,
+                                                   attn_mask=mask),
+                                      iters=50, warmup=5),
+                   library="SDPA fp32", bound_ms=bound_ms,
+                   bound_by=bound_by)
+        row["bound_share"] = bound_ms / row["ms"]
+        log("phase 2: flash f32 " + json.dumps(row))
+        rows.append(row)
+    report["f32_cases"] = rows
 
 
 def _check(name, what, got, want, tol):
@@ -658,7 +732,9 @@ def kernels_line(report):
             "serving r1 + r2 (phase 4)": report.get("launches", 0),
             "watcher render (phase 11e)": report.get("watcher_launches", 0),
             "w8a8 + adapters (phase 11c)": report.get(
-                "lora_w8a8_launches", {}).get("launches", 0)},
+                "lora_w8a8_launches", {}).get("launches", 0),
+            "i2v request (phase 12c)": report.get("i2v_launches", {}).get(
+                "launches", 0)},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"],
         "before_redesign_ms": main["before_redesign_ms"],
@@ -668,6 +744,27 @@ def kernels_line(report):
         "library_ms": main["library_ms"],
         "cases": cases,
     }]
+    f32 = report.get("f32_cases")
+    if f32:
+        main32 = f32[0]  # the CLIP tower's shape
+        entries.append({
+            "name": "flash_fwd_f32",
+            "route": "cuda",
+            "source": "moviigen_tpu_torch/csrc/flash_fwd_f32.cu",
+            "replaces": "moviigen_tpu/ops/flash_attention.py:124 (fp32)",
+            "launches": report.get("i2v_launches", {}).get("f32_launches",
+                                                           0),
+            "launches_by_path": {
+                "i2v request (phase 12c)": report.get(
+                    "i2v_launches", {}).get("f32_launches", 0),
+                "i2v preprocess (phase 12d)": report.get(
+                    "i2v_preprocess_launches", {}).get("f32_launches", 0)},
+            "max_abs_err": max(c["max_abs_err"] for c in f32),
+            "ms": main32["ms"], "plain_ms": main32["plain_ms"],
+            "bound_ms": main32["bound_ms"], "bound_by": main32["bound_by"],
+            "library_ms": main32["library_ms"],
+            "cases": f32,
+        })
     int8 = report.get("int8_cases")
     if int8:
         main8 = int8[0]  # the attention projections of the first request
@@ -682,7 +779,10 @@ def kernels_line(report):
                 "w8a8 + adapters (phase 11c)": report.get(
                     "lora_w8a8_launches", {}).get("int8_gemm_launches", 0),
                 "qlora (phase 11a)": report.get("qlora_launches", {}).get(
-                    "int8_gemm_launches", 0)},
+                    "int8_gemm_launches", 0),
+                "i2v w8a8 DiT (phase 12b)": report.get("i2v_dit", {}).get(
+                    "w8a8", {}).get("launches", {}).get(
+                        "int8_gemm_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in int8),
             "ms": main8["ms"],
             "before_redesign_ms": main8["before_redesign_ms"],
@@ -706,7 +806,10 @@ def kernels_line(report):
                 "w8a8 + adapters (phase 11c)": report.get(
                     "lora_w8a8_launches", {}).get("quantize_launches", 0),
                 "qlora (phase 11a)": report.get("qlora_launches", {}).get(
-                    "quantize_launches", 0)},
+                    "quantize_launches", 0),
+                "i2v w8a8 DiT (phase 12b)": report.get("i2v_dit", {}).get(
+                    "w8a8", {}).get("launches", {}).get(
+                        "quantize_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in quant),
             "ms": mainq["ms"], "plain_ms": mainq["plain_ms"],
             "bound_ms": mainq["bound_ms"], "bound_by": mainq["bound_by"],
@@ -1180,8 +1283,8 @@ def phase_grad_check(report):
     names, params = zip(*model.named_parameters())
     sites = 2 * GRAD_CHECK_LAYERS  # self + cross attention per block
     want_counts = {
-        "auto": dict(launches=0, stats_launches=sites, dkv_launches=sites,
-                     dq_launches=sites),
+        "auto": dict(dict.fromkeys(fa.COUNTERS, 0), stats_launches=sites,
+                     dkv_launches=sites, dq_launches=sites),
         "plain": dict.fromkeys(fa.COUNTERS, 0)}
     grads = {}
     for backend in ("auto", "plain"):
@@ -1299,7 +1402,8 @@ def phase_trainer(report):
     # per step, each of the 2 x 30 attention sites: the stats forward in
     # the forward and again in the per-block recompute, one dKV, one dQ
     sites = 2 * cfg.num_layers
-    want = dict(launches=0, stats_launches=2 * sites * TRAIN_STEPS,
+    want = dict(dict.fromkeys(fa.COUNTERS, 0),
+                stats_launches=2 * sites * TRAIN_STEPS,
                 dkv_launches=sites * TRAIN_STEPS,
                 dq_launches=sites * TRAIN_STEPS)
     losses, gnorms = record["loss"], record["grad_norm"]
@@ -2148,7 +2252,7 @@ def phase_lora_grads(report):
     target = torch.randn(x.shape, generator=gen, device=DEVICE)
     sites = 2 * LORA_GRAD_LAYERS
     want_counts = {
-        "auto": dict(launches=0, stats_launches=2 * sites,
+        "auto": dict(dict.fromkeys(fa.COUNTERS, 0), stats_launches=2 * sites,
                      dkv_launches=sites, dq_launches=sites),
         "plain": dict.fromkeys(fa.COUNTERS, 0)}
     grads = {}
@@ -2427,15 +2531,289 @@ def phase_lora(report):
     phase_watcher(report)
 
 
+# ------------------------------------------------------------------- i2v
+
+# Phase 12: image-to-video at i2v-14B (the t2v-14B DiT with in_dim 36 and
+# the image cross-attention), the fp32 ViT-H/14 CLIP tower, random weights.
+I2V_TASK = "i2v-14B"
+I2V_FRAMES, I2V_STEPS = 17, 4  # 832*480: 7,800 tokens, batched CFG
+# CLIP features, fp32 kernel path against plain attention (TF32 off): the
+# two attentions differ by fp32 rounding (F32_REL_TOL) and 31 blocks of
+# fp32 GEMMs carry it on without amplifying it much; 1e-4 of the
+# features' scale bounds that, a broken attention is off by O(1).
+CLIP_REL_TOL = 1e-4
+
+
+def _i2v_dit_inputs(cfg, gen):
+    """The i2v request's DiT inputs at 832*480*17: B=2 (batched CFG),
+    latents [2, 16, 5, 60, 104], y [2, 20, ...], clip_fea [2, 257, 1280]."""
+    import torch
+
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+
+    z = 16
+    x = torch.randn(2, z, 5, 60, 104, generator=gen, device=DEVICE)
+    y = torch.randn(2, cfg.in_dim - z, 5, 60, 104, generator=gen,
+                    device=DEVICE)
+    clip_fea = torch.randn(2, 257, 1280, generator=gen, device=DEVICE)
+    t = torch.full((2,), 500.0, device=DEVICE)
+    ctx = torch.randn(2, cfg.text_len, cfg.text_dim, generator=gen,
+                      device=DEVICE)
+    rope = rope_3d_freqs((5, 30, 52), cfg.head_dim, device=DEVICE)
+    return (x, t, ctx, rope), dict(clip_fea=clip_fea, y=y)
+
+
+def phase_i2v_clip(report):
+    """(a) The full ViT-H/14 (31 blocks, fp32) on one 832×480 image: the
+    fp32 kernel path against plain attention, 31 kernel launches."""
+    import torch
+
+    from moviigen_tpu_torch.models import clip as clipm
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    model = clipm.CLIPVision(device=DEVICE).init_weights(gen).eval()
+    image = torch.rand(1, 3, 480, 832, generator=gen, device=DEVICE) * 2 - 1
+    feats, secs = {}, {}
+    for backend in ("auto", "plain", "auto"):
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats[backend] = clipm.visual_features(model, image, backend=backend)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0  # the second auto: warm
+        counts = fa.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if backend == "auto":
+            want["f32_launches"] = model.cfg.num_layers - 1
+        if counts != want:
+            raise RuntimeError(f"CLIP {backend}: launches {counts}, "
+                               f"expected {want}")
+    got, ref = feats["auto"], feats["plain"]
+    if got.shape != (1, 257, 1280) or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"CLIP: features {tuple(got.shape)}, finite "
+                           f"{bool(torch.isfinite(got).all())}")
+    max_abs, rel = rel_err(got, ref)
+    row = dict(blocks=model.cfg.num_layers - 1, max_abs_err=max_abs,
+               rel_err=rel, kernel_s=secs["auto"], plain_s=secs["plain"],
+               f32_launches=model.cfg.num_layers - 1)
+    log("phase 12a: clip " + json.dumps(row))
+    if rel > CLIP_REL_TOL:
+        raise RuntimeError(f"CLIP kernel vs plain: {rel:.3e} of the "
+                           f"features' scale > {CLIP_REL_TOL}")
+    report["i2v_clip"] = row
+    del model, feats, got, ref
+    torch.cuda.empty_cache()
+
+
+def phase_i2v_dit(report):
+    """(b) The i2v-14B DiT at full width, 2 blocks, at the request's 7,800
+    tokens with y and clip_fea: the kernel path against plain attention,
+    then W8A8 against the plain int8 GEMM and quantization."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+
+    cfg = WAN_CONFIGS[I2V_TASK].model.replace(num_layers=DIT_SMOKE_LAYERS)
+    rows = {}
+    for quant in (None, "w8a8"):
+        gen = torch.Generator(device=DEVICE).manual_seed(12)
+        model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE,
+                         quant=quant).init_weights(gen)
+        with torch.no_grad():
+            model.head.weight.normal_(0.0, 0.02, generator=gen)  # live head
+            args, cond = _i2v_dit_inputs(cfg, gen)
+            fa.reset_launch_counts()
+            ig.reset_launch_counts()
+            got = model(*args, seq_len=7800, **cond).float()
+            counts = {**fa.launch_counts(), **ig.launch_counts()}
+            if quant is None:
+                want = model(*args, seq_len=7800, attn_backend="plain",
+                             **cond).float()
+            else:
+                with plain_int8_gemm():
+                    want = model(*args, seq_len=7800, **cond).float()
+        torch.cuda.synchronize()
+        # per block: self-attention, text and image cross-attention; W8A8:
+        # 12 linears (k_img and v_img too) in 8 quantized-input groups
+        expected = dict.fromkeys(counts, 0)
+        expected["launches"] = 3 * DIT_SMOKE_LAYERS
+        if quant == "w8a8":
+            expected.update(int8_gemm_launches=12 * DIT_SMOKE_LAYERS,
+                            quantize_launches=8 * DIT_SMOKE_LAYERS)
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"i2v DiT {quant}: non-finite prediction")
+        rel = float((got - want).norm() / want.norm())
+        tag = quant or "bf16"
+        rows[tag] = dict(layers=DIT_SMOKE_LAYERS, tokens=7800,
+                         rel_norm_err=rel, pred_norm=float(want.norm()),
+                         launches=counts)
+        log(f"phase 12b: i2v dit {tag} " + json.dumps(rows[tag]))
+        if rel > (DIT_REL_TOL if quant is None else QUANT_DIT_REL_TOL):
+            raise RuntimeError(f"i2v DiT {tag}: kernel vs plain {rel:.3e}")
+        if counts != expected:
+            raise RuntimeError(f"i2v DiT {tag}: launches {counts}, "
+                               f"expected {expected}")
+        del model, got, want, args, cond
+        torch.cuda.empty_cache()
+    report["i2v_dit"] = rows
+
+
+def phase_i2v_request(report):
+    """(c) ``cli.generate --task i2v-14B --image`` at full width and depth:
+    one 832×480×17 request, 4 UniPC steps, batched CFG."""
+    import pathlib
+
+    import torch
+    from PIL import Image
+
+    from moviigen_tpu_torch.cli import generate
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.pipelines.image2video import WanI2V
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "_smoke_out"
+    out_dir.mkdir(exist_ok=True)
+    png = out_dir / "i2v_first_frame.png"
+    yy, xx = np.mgrid[0:480, 0:832]
+    Image.fromarray(np.stack([xx * 255 // 831, yy * 255 // 479,
+                              (xx + yy) % 256], -1).astype(np.uint8)
+                    ).save(png)
+    served = []
+    real_generate = WanI2V.generate
+
+    def recording_generate(pipe, *a, **k):
+        video = real_generate(pipe, *a, **k)
+        served.append((pipe.timings, video))
+        return video
+
+    cfg = WAN_CONFIGS[I2V_TASK]
+    WanI2V.generate = recording_generate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        ig.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate.main([
+            "--task", I2V_TASK, "--size", "832*480", "--frame_num",
+            str(I2V_FRAMES), "--sample_steps", str(I2V_STEPS),
+            "--base_seed", "42", "--image", str(png),
+            "--save_file", str(out_dir / "i2v_832x480_17f.mp4")])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = {**fa.launch_counts(), **ig.launch_counts()}
+    finally:
+        WanI2V.generate = real_generate
+    report["i2v_launches"] = counts
+    (timings, video), = served
+    # one batched-CFG forward per step: self, text and image attention in
+    # each of the 40 blocks; the CLIP's 31 fp32 blocks once
+    expected = dict.fromkeys(counts, 0)
+    expected.update(launches=3 * cfg.model.num_layers * I2V_STEPS,
+                    f32_launches=31)
+    _serve_checks("i2v", video, I2V_FRAMES)
+    row = dict(task=I2V_TASK, size="832*480", frames=I2V_FRAMES,
+               steps=I2V_STEPS, tokens=7800, total_s=total_s,
+               clip_s=timings["clip_s"], encode_s=timings["encode_s"],
+               t5_s=timings["t5_s"], step_s=timings["step_s"],
+               decode_s=timings["decode_s"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=counts, video_std=float(video.std()), saved=out)
+    log("phase 12c: " + json.dumps(row))
+    if counts != expected:
+        raise RuntimeError(f"i2v request: launches {counts}, expected "
+                           f"{expected}")
+    if out is None or not os.path.getsize(out):
+        raise RuntimeError("i2v request: no video written")
+    report["i2v_request"] = row
+    del served, video
+    torch.cuda.empty_cache()
+
+
+def phase_i2v_preprocess(report):
+    """(d) ``cli.preprocess --dataset i2v`` on one synthetic 832×480×81
+    clip: y and the CLIP features of its first frame beside the latent."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import preprocess
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.pipelines.image2video import build_i2v_mask
+
+    cfg = WAN_CONFIGS[I2V_TASK]
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "pre_i2v"
+    shutil.rmtree(root, ignore_errors=True)
+    merge = _write_clips(root, [(PRE_FRAMES, PRE_FT_H, PRE_FT_W)], 2)
+    out = root / "out"
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_json = preprocess.main([
+        "--data_merge_path", merge, "--output_dir", str(out), "--task",
+        I2V_TASK, "--dataset", "i2v", "--crop_height", str(PRE_FT_H),
+        "--crop_width", str(PRE_FT_W)])
+    run_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    report["i2v_preprocess_launches"] = counts
+    (item,) = json.loads(pathlib.Path(out_json).read_text())
+    stats = json.loads((out / "preprocess_stats_shard0.json").read_text())
+    y = np.load(out / "y" / item["y_path"])
+    fea = np.load(out / "clip_feature" / item["clip_feature_path"])
+    t_lat = (PRE_FRAMES - 1) // 4 + 1
+    mask = build_i2v_mask(PRE_FRAMES, PRE_FT_H // 8, PRE_FT_W // 8).numpy()
+    row = dict(task=I2V_TASK, frames=PRE_FRAMES,
+               size=f"{PRE_FT_W}*{PRE_FT_H}", run_s=run_s,
+               vae_s=stats["vae_s"], t5_s=stats["t5_s"],
+               i2v_s=stats["i2v_s"], errors=stats["errors"],
+               y_shape=list(y.shape), clip_feature_shape=list(fea.shape),
+               launches=counts)
+    log("phase 12d: " + json.dumps(row))
+    if y.shape != (4 + cfg.vae.z_dim, t_lat, PRE_FT_H // 8, PRE_FT_W // 8) \
+            or fea.shape != (257, 1280):
+        raise RuntimeError(f"i2v preprocess: y {y.shape}, clip feature "
+                           f"{fea.shape}")
+    if not (np.isfinite(y).all() and np.isfinite(fea).all()):
+        raise RuntimeError("i2v preprocess: non-finite y or clip feature")
+    if not np.array_equal(y[:4], mask):
+        raise RuntimeError("i2v preprocess: y[:4] is not the mask")
+    if stats["errors"] or counts["f32_launches"] != 31:
+        raise RuntimeError(f"i2v preprocess: errors {stats['errors']}, "
+                           f"launches {counts}")
+    report["i2v_preprocess"] = row
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_i2v(report):
+    import gc
+
+    import torch
+
+    for sub in (phase_i2v_clip, phase_i2v_dit, phase_i2v_request,
+                phase_i2v_preprocess):
+        sub(report)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 12: after {sub.__name__} "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
-          9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora}
+          9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora,
+          12: phase_i2v}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12",
                     help="comma-separated phases to run (default: all "
                          "but the profiles, 5, 7 and 9)")
     args = ap.parse_args(argv)

@@ -118,9 +118,12 @@ def _parse_args(argv=None):
 
 def _validate_args(args) -> None:
     if "i2v" in args.task:
+        # the JAX trainer passes no y and no clip_fea (cli/finetune.py:
+        # 272-281) and its loader reads neither, so it cannot train i2v
+        # either; the port adds no feature the JAX package lacks
         raise NotImplementedError(
-            f"task {args.task!r}: i2v comes with the i2v slice (ROADMAP "
-            "queue 1 item 10)")
+            f"task {args.task!r}: i2v fine-tuning is not supported (the JAX "
+            "package has no i2v trainer to port)")
     for flag, (unused, item) in LATER_SLICE_FLAGS.items():
         if getattr(args, flag) != unused:
             raise NotImplementedError(

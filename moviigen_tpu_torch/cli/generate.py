@@ -1,13 +1,18 @@
-"""Text→video generation CLI of the PyTorch port.
+"""Text→video and image→video generation CLI of the PyTorch port.
 
-Counterpart of ``moviigen_tpu/cli/generate.py`` for the t2v/t2i tasks, on
-one device (``--device``, default ``cuda``). Flags of later slices of the
-port are accepted by the parser and refused with an error naming the
-slice that brings them.
+Counterpart of ``moviigen_tpu/cli/generate.py`` for the t2v, t2i and i2v
+tasks, on one device (``--device``, default ``cuda``). Flags of later
+slices of the port are accepted by the parser and refused with an error
+naming the slice that brings them.
 
-Example:
+Examples:
     python -m moviigen_tpu_torch.cli.generate --task t2v-14B \\
         --size 832*480 --frame_num 17 --sample_steps 4 --quant w8a8
+    python -m moviigen_tpu_torch.cli.generate --task i2v-14B \\
+        --size 832*480 --image first_frame.png
+
+``--image`` (i2v, required there) is read as the JAX CLI reads it: RGB,
+resized to the request's size, scaled to [-1, 1].
 
 ``--ckpt_dir`` names a checkpoint directory in the reference layout (DiT
 safetensors shards, ``models_t5_umt5-xxl-enc-bf16.pth``,
@@ -23,6 +28,8 @@ import argparse
 import logging
 from datetime import datetime
 
+import numpy as np
+
 from ..configs import SIZE_CONFIGS, SUPPORTED_SIZES, WAN_CONFIGS
 from ..utils.io import cache_image, cache_video, str2bool
 
@@ -33,6 +40,9 @@ EXAMPLE_PROMPT = {
                 "gloves fight intensely on a spotlighted stage.",
     "t2i-14B": "一个朴素端庄的美人",
     "t2v-tiny": "a tiny test video",
+    "i2v-14B": "Summer beach vacation style, a white cat wearing sunglasses "
+               "sits on a surfboard.",
+    "i2v-tiny": "a tiny test image-to-video",
 }
 
 # flag → (value that means "not used", slice of the port that brings it)
@@ -41,7 +51,6 @@ LATER_SLICE_FLAGS = {
     "ring_size": (1, "the multi-GPU sequence-parallel slice"),
     "dit_fsdp": (False, "the multi-GPU sequence-parallel slice"),
     "t5_fsdp": (False, "the multi-GPU sequence-parallel slice"),
-    "image": (None, "the i2v slice"),
     "use_prompt_extend": (False, "the apps-and-utilities slice"),
 }
 
@@ -49,11 +58,8 @@ LATER_SLICE_FLAGS = {
 def _validate_args(args):
     """The JAX CLI's checks (ref generate.py:34-60), raising instead of
     asserting, plus the refusal of later slices' flags."""
-    if args.task not in WAN_CONFIGS or "i2v" in args.task:
-        raise ValueError(
-            f"task {args.task!r} is not served by the port yet"
-            + (" (i2v comes with the i2v slice)" if "i2v" in args.task
-               else ""))
+    if args.task not in WAN_CONFIGS:
+        raise ValueError(f"task {args.task!r} is not served by the port")
     for flag, (unused, slice_name) in LATER_SLICE_FLAGS.items():
         if getattr(args, flag) != unused:
             raise NotImplementedError(
@@ -76,6 +82,18 @@ def _validate_args(args):
             f"supported: {SUPPORTED_SIZES[args.task]}")
     if args.prompt is None:
         args.prompt = EXAMPLE_PROMPT[args.task]
+    if "i2v" in args.task and args.image is None:
+        raise ValueError("--image is required for i2v tasks")
+
+
+def load_image(path: str, size) -> np.ndarray:
+    """The conditioning image as the JAX CLI reads it (generate.py:
+    184-201): RGB, resized to ``size`` = (w, h) by PIL, [3, h, w] float32
+    in [-1, 1]."""
+    from PIL import Image
+
+    im = Image.open(path).convert("RGB").resize(tuple(size))
+    return np.asarray(im, np.float32).transpose(2, 0, 1) / 127.5 - 1.0
 
 
 def _parse_args(argv=None):
@@ -124,20 +142,28 @@ def _parse_args(argv=None):
 
 
 def generate(args) -> str:
+    from ..pipelines.image2video import WanI2V
     from ..pipelines.text2video import WanT2V
 
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] %(levelname)s: %(message)s")
     cfg = WAN_CONFIGS[args.task]
+    size = SIZE_CONFIGS[args.size]
     logging.info("prompt: %s", args.prompt)
-    pipe = WanT2V(config=cfg, residual_dtype=args.residual_dtype,
-                  device=args.device, checkpoint_dir=args.ckpt_dir,
-                  quant=args.quant)
-    video = pipe.generate(
-        args.prompt, size=SIZE_CONFIGS[args.size],
-        frame_num=args.frame_num, shift=args.sample_shift,
-        sample_solver=args.sample_solver, sampling_steps=args.sample_steps,
-        guide_scale=args.sample_guide_scale, seed=args.base_seed)
+    pipe_kw = dict(config=cfg, residual_dtype=args.residual_dtype,
+                   device=args.device, checkpoint_dir=args.ckpt_dir,
+                   quant=args.quant)
+    gen_kw = dict(size=size, frame_num=args.frame_num,
+                  shift=args.sample_shift, sample_solver=args.sample_solver,
+                  sampling_steps=args.sample_steps,
+                  guide_scale=args.sample_guide_scale, seed=args.base_seed)
+    if "i2v" in args.task:
+        pipe = WanI2V(**pipe_kw)
+        video = pipe.generate(args.prompt, load_image(args.image, size),
+                              **gen_kw)
+    else:
+        pipe = WanT2V(**pipe_kw)
+        video = pipe.generate(args.prompt, **gen_kw)
     logging.info("timings: %s", pipe.timings)
 
     if args.save_file is None:

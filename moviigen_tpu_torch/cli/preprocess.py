@@ -11,7 +11,11 @@ signal's number), per-error-type budgets, a
 ``videos2caption_<run>.json`` merged with the previous run's and its
 ``videos2caption_latest.json`` symlink, and
 ``preprocess_stats_shard<k>.json``. Sharding is ``--shard_idx`` /
-``--num_shards`` (modulo split).
+``--num_shards`` (modulo split). ``--dataset i2v`` also writes each
+clip's first-frame conditioning ``y/<name>.npy`` (fp32 [4 + z, T', H',
+W']: the mask, then the VAE latents of [first frame, zeros], encoded in
+fp32) and CLIP features ``clip_feature/<name>.npy`` (fp32 [257, 1280]),
+named in the annotations as ``y_path`` and ``clip_feature_path``.
 
 It runs on ``--device`` (the CUDA card unless told otherwise; ``--device
 cpu`` for small configs on the CPU). Clips above
@@ -19,8 +23,9 @@ cpu`` for small configs on the CPU). Clips above
 frames (``models/vae_streaming.py::encode_video``), which gives the same
 latents. Weights come from ``--model_path`` (a checkpoint directory in
 the reference layout) or are random from ``--seed``: the VAE from a
-generator seeded with ``seed``, the umT5 from ``seed + 1``, so the split
-stages (``cli/preprocess_stages.py``) build the same random models.
+generator seeded with ``seed``, the umT5 from ``seed + 1``, the i2v CLIP
+tower from ``seed + 2``, so the split stages
+(``cli/preprocess_stages.py``) build the same random models.
 
 Example:
     python -m moviigen_tpu_torch.cli.preprocess \\
@@ -53,8 +58,8 @@ def _parse_args(argv=None):
     p.add_argument("--task", type=str, default="t2v-14B")
     p.add_argument("--dataset", type=str, default="t2v",
                    choices=["t2v", "i2v"],
-                   help="i2v (first-frame conditioning and CLIP features) "
-                        "comes with the i2v slice (ROADMAP queue 1 item 10)")
+                   help="i2v also caches the first-frame conditioning y "
+                        "and the CLIP features")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card; raises "
                         "without one)")
@@ -121,6 +126,21 @@ def load_t5(args, cfg, device):
     return t5.eval(), tokenizer
 
 
+def load_clip(args, device):
+    """The i2v CLIP vision tower (fp32): ``models_clip_open-clip-xlm-
+    roberta-large-vit-huge-14.pth`` in ``--model_path`` or random from
+    ``--seed`` + 2 (the JAX CLI draws it from PRNGKey(seed + 2))."""
+    from ..models import clip as clipm
+
+    cfg = clipm.CLIPVisionConfig()
+    path = os.path.join(args.model_path or "", clipm.CLIP_CHECKPOINT)
+    if args.model_path and os.path.exists(path):
+        return clipm.load_clip_checkpoint(path, cfg, device=device).eval()
+    logging.warning("random-init CLIP tower for i2v caching")
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    return clipm.CLIPVision(cfg, device=device).init_weights(gen).eval()
+
+
 def make_dataset(args):
     from ..data.t2v_dataset import T2VDataset
 
@@ -158,6 +178,20 @@ def encode_text(t5, tokenizer, text: str, device) -> np.ndarray:
     return ctx[0, :int(mask[0].sum())].float().cpu().numpy()
 
 
+@torch.no_grad()
+def encode_i2v(vae_params, clip, pixel_values: np.ndarray, cfg, device):
+    """A clip's i2v conditioning from its first frame, as the JAX CLI
+    builds it (preprocess.py:219-237): (y fp32 [4 + z, T', H', W'],
+    clip_fea fp32 [257, 1280]) as numpy."""
+    from ..pipelines.image2video import build_i2v_conditioning
+
+    pix = torch.from_numpy(pixel_values).to(device)  # [3, T, H, W]
+    frames, h, w = pix.shape[1:]
+    y, clip_fea = build_i2v_conditioning(vae_params, clip, pix[:, 0],
+                                         frames, (w, h), cfg.vae)
+    return y.float().cpu().numpy(), clip_fea[0].float().cpu().numpy()
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -165,10 +199,6 @@ def main(argv=None):
     """Run the preprocessing; returns the path of the run's merged
     ``videos2caption_<run>.json``."""
     args = _parse_args(argv)
-    if args.dataset == "i2v":
-        raise NotImplementedError(
-            "--dataset i2v is not supported by the PyTorch port yet; it "
-            "comes with the i2v slice (ROADMAP queue 1 item 10)")
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] %(levelname)s: %(message)s")
 
@@ -219,12 +249,20 @@ def _run(args, device, processed, save_processed):
     t5, tokenizer = load_t5(args, cfg, device)
     enc_dt = getattr(torch, args.encode_dtype)
     dataset = make_dataset(args)
+    i2v = args.dataset == "i2v"
+    if i2v:
+        clip = load_clip(args, device)
+        for sub in ("y", "clip_feature"):
+            os.makedirs(os.path.join(args.output_dir, sub), exist_ok=True)
 
     error_counts = defaultdict(int)
     metadata_items = []
     # per processed item: seconds of the VAE encode and of the T5 encode,
-    # and (on the card) the peak GiB allocated during the VAE encode
+    # and (on the card) the peak GiB allocated during the VAE encode; for
+    # i2v also the seconds of the conditioning (its encode and the CLIP)
     timings = {"vae_s": [], "t5_s": [], "vae_peak_gib": []}
+    if i2v:
+        timings["i2v_s"] = []
     last_save = time.time()
 
     for idx in range(len(dataset)):
@@ -251,14 +289,25 @@ def _run(args, device, processed, save_processed):
             t5_s = time.perf_counter() - t0
             np.save(os.path.join(embed_dir, f"{name}.npy"), emb)
 
-            metadata_items.append({
+            meta = {
                 "latent_path": f"{name}.npy",
                 "prompt_embed_path": f"{name}.npy",
                 "caption": sample["text"],
                 "length": int(latent.shape[1]),
                 "aspect_ratio_bin":
                     sample["metadata"]["aspect_ratio_bin"],
-            })
+            }
+            if i2v:
+                t0 = time.perf_counter()
+                y, clip_fea = encode_i2v(vae_params, clip,
+                                         sample["pixel_values"], cfg, device)
+                timings["i2v_s"].append(time.perf_counter() - t0)
+                np.save(os.path.join(args.output_dir, "y", f"{name}.npy"), y)
+                np.save(os.path.join(args.output_dir, "clip_feature",
+                                     f"{name}.npy"), clip_fea)
+                meta["y_path"] = f"{name}.npy"
+                meta["clip_feature_path"] = f"{name}.npy"
+            metadata_items.append(meta)
             processed.add(item_key)
             timings["vae_s"].append(vae_s)
             timings["t5_s"].append(t5_s)

@@ -17,6 +17,9 @@ checkpoint converters or quantizers. Layouts change on the way:
   d_out]}}`` → one ``LoRAAdapter`` per targeted linear and layer, A and B
   in the same [d_in, r] / [r, d_out] layout.
 
+The CLIP towers (``load_clip_params`` / ``clip_params_tree``) follow the
+same rules.
+
 ``wan_params_tree`` and ``t5_params_tree`` go the other way (torch
 tensors in the JAX layout): the quantized caches on disk are such trees,
 so that either package reads the other's file.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.clip import XLMRobertaText
 from .models.t5 import T5Encoder
 from .models.wan_model import WanModel
 from .ops.quantization import (T5_TARGETS, TARGET_SUFFIXES, QuantEmbedding,
@@ -140,13 +144,20 @@ def load_wan_params(model: WanModel, params: Dict[str, Any]) -> WanModel:
                 _linear(getattr(owner, attr), bp[group][name], i)
         for name in ("self_attn", "cross_attn"):
             mod, p = getattr(blk, name), bp[name]
-            if mod.norm_q is not None:
-                _set(mod.norm_q, p["norm_q"]["scale"][i])
-                _set(mod.norm_k, p["norm_k"]["scale"][i])
+            for norm in ("norm_q", "norm_k", "norm_k_img"):
+                if getattr(mod, norm) is not None:
+                    _set(getattr(mod, norm), p[norm]["scale"][i])
         _set(blk.modulation, bp["modulation"][i])
         if blk.norm3_weight is not None:
             _set(blk.norm3_weight, bp["norm3"]["scale"][i])
             _set(blk.norm3_bias, bp["norm3"]["bias"][i])
+    if model.cfg.model_type == "i2v":
+        ie = params["img_emb"]
+        _linear(model.img_emb_fc1, ie["fc1"])
+        _linear(model.img_emb_fc2, ie["fc2"])
+        for norm in ("norm1", "norm2"):
+            _set(getattr(model, f"img_emb_{norm}_weight"), ie[norm]["scale"])
+            _set(getattr(model, f"img_emb_{norm}_bias"), ie[norm]["bias"])
     return model
 
 
@@ -162,8 +173,8 @@ def wan_params_tree(model: WanModel) -> Dict[str, Any]:
                 _linear_leaf(getattr(*block_linear(blk, suffix)))
                 for blk in model.blocks])
     for name in ("self_attn", "cross_attn"):
-        if model.blocks[0].self_attn.norm_q is not None:
-            for norm in ("norm_q", "norm_k"):
+        for norm in ("norm_q", "norm_k", "norm_k_img"):
+            if getattr(getattr(model.blocks[0], name), norm) is not None:
                 blocks[name][norm] = {"scale": _stack(
                     [getattr(getattr(blk, name), norm)
                      for blk in model.blocks])}
@@ -172,7 +183,7 @@ def wan_params_tree(model: WanModel) -> Dict[str, Any]:
         blocks["norm3"] = {
             "scale": _stack([blk.norm3_weight for blk in model.blocks]),
             "bias": _stack([blk.norm3_bias for blk in model.blocks])}
-    return {
+    tree = {
         "patch_embedding": _linear_leaf(model.patch_embedding),
         "text_embedding": {"fc1": _linear_leaf(model.text_embedding_fc1),
                            "fc2": _linear_leaf(model.text_embedding_fc2)},
@@ -183,6 +194,15 @@ def wan_params_tree(model: WanModel) -> Dict[str, Any]:
         "head": {"head": _linear_leaf(model.head),
                  "modulation": model.head_modulation.detach()},
     }
+    if model.cfg.model_type == "i2v":
+        tree["img_emb"] = {
+            "fc1": _linear_leaf(model.img_emb_fc1),
+            "fc2": _linear_leaf(model.img_emb_fc2),
+            **{norm: {"scale": getattr(model, f"img_emb_{norm}_weight")
+                      .detach(),
+                      "bias": getattr(model, f"img_emb_{norm}_bias").detach()}
+               for norm in ("norm1", "norm2")}}
+    return tree
 
 
 def lora_params_to_torch(lora: Dict[str, Any]):
@@ -286,6 +306,65 @@ def t5_params_tree(model: T5Encoder) -> Dict[str, Any]:
         emb = emb.detach()
     return {"token_embedding": emb, "blocks": blocks,
             "norm": {"weight": model.norm.detach()}}
+
+
+_CLIP_LINEARS = ("to_qkv", "proj", "fc1", "fc2")
+_CLIP_NORMS = ("norm1", "norm2")
+
+
+def load_clip_params(model, params: Dict[str, Any]):
+    """JAX CLIP tree → ``model``: the vision tower (``CLIPVision``, the
+    ``init_vision_params`` / ``convert_clip_vision_state_dict`` layout) or
+    the text tower (``XLMRobertaText``: token, type and position tables,
+    ``norm``); the stacked ``blocks`` leaves go one layer per block."""
+    if isinstance(model, XLMRobertaText):
+        for name in ("token_embedding", "type_embedding", "pos_embedding"):
+            _set(getattr(model, name), params[name])
+        _set(model.norm_weight, params["norm"]["scale"])
+        _set(model.norm_bias, params["norm"]["bias"])
+    else:
+        _linear(model.patch_embedding, params["patch_embedding"])
+        _set(model.cls_embedding, params["cls_embedding"])
+        _set(model.pos_embedding, params["pos_embedding"])
+        if model.pre_norm_weight is not None:
+            _set(model.pre_norm_weight, params["pre_norm"]["scale"])
+            _set(model.pre_norm_bias, params["pre_norm"]["bias"])
+    bp = params["blocks"]
+    for i, blk in enumerate(model.blocks):
+        for name in _CLIP_LINEARS:
+            _linear(getattr(blk, name), bp[name], i)
+        for norm in _CLIP_NORMS:
+            _set(getattr(blk, f"{norm}_weight"), bp[norm]["scale"][i])
+            _set(getattr(blk, f"{norm}_bias"), bp[norm]["bias"][i])
+    return model
+
+
+def clip_params_tree(model) -> Dict[str, Any]:
+    """``model`` (``CLIPVision`` or ``XLMRobertaText``) as the JAX CLIP
+    tree of tensors (inverse of ``load_clip_params``)."""
+    blocks: Dict[str, Any] = {
+        name: _stack([_linear_leaf(getattr(blk, name))
+                      for blk in model.blocks]) for name in _CLIP_LINEARS}
+    for norm in _CLIP_NORMS:
+        blocks[norm] = {
+            "scale": _stack([getattr(blk, f"{norm}_weight")
+                             for blk in model.blocks]),
+            "bias": _stack([getattr(blk, f"{norm}_bias")
+                            for blk in model.blocks])}
+    if isinstance(model, XLMRobertaText):
+        tree = {name: getattr(model, name).detach() for name in
+                ("token_embedding", "type_embedding", "pos_embedding")}
+        tree["norm"] = {"scale": model.norm_weight.detach(),
+                        "bias": model.norm_bias.detach()}
+    else:
+        tree = {"patch_embedding": _linear_leaf(model.patch_embedding),
+                "cls_embedding": model.cls_embedding.detach(),
+                "pos_embedding": model.pos_embedding.detach()}
+        if model.pre_norm_weight is not None:
+            tree["pre_norm"] = {"scale": model.pre_norm_weight.detach(),
+                                "bias": model.pre_norm_bias.detach()}
+    tree["blocks"] = blocks
+    return tree
 
 
 def vae_params_to_torch(params: Any, device=None) -> Any:

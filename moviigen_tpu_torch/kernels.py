@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every ``csrc/<name>.cu`` of the port
-KERNELS = ("flash_fwd", "flash_bwd", "int8_gemm", "quantize_act")
+KERNELS = ("flash_fwd", "flash_bwd", "int8_gemm", "quantize_act",
+           "flash_fwd_f32")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}

@@ -37,12 +37,13 @@ KeyMap = List[Tuple[str, str, Optional[Tuple[int, ...]]]]
 
 
 def wan_key_map(cfg: WanModelConfig) -> KeyMap:
-    """Every reference key of the t2v DiT beside the port parameter that
-    holds it (the reference ``WanModel`` tree, wan/modules/model.py)."""
-    if cfg.model_type != "t2v":
-        raise NotImplementedError(
-            "the port's DiT covers t2v; i2v comes with a later slice")
+    """Every reference key of the t2v or i2v DiT beside the port parameter
+    that holds it (the reference ``WanModel`` tree, wan/modules/model.py;
+    for i2v also the cross-attention's ``k_img``, ``v_img`` and
+    ``norm_k_img`` and the ``img_emb.proj`` MLP, the JAX
+    wan_convert.py:95-96, 146-160, 205-208)."""
     d = cfg.dim
+    img = cfg.model_type == "i2v"
     pairs: KeyMap = []
 
     def lin(ref: str, port: str) -> None:
@@ -62,10 +63,15 @@ def wan_key_map(cfg: WanModelConfig) -> KeyMap:
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}"
         for attn in ("self_attn", "cross_attn"):
-            for proj in ("q", "k", "v", "o"):
+            with_img = img and attn == "cross_attn"
+            projs = ("q", "k", "v", "o") + (("k_img", "v_img") if with_img
+                                            else ())
+            for proj in projs:
                 lin(f"{pre}.{attn}.{proj}", f"{pre}.{attn}.{proj}")
             if cfg.qk_norm:
-                for norm in ("norm_q", "norm_k"):
+                norms = ("norm_q", "norm_k") + (("norm_k_img",) if with_img
+                                                else ())
+                for norm in norms:
                     pairs.append((f"{pre}.{attn}.{norm}.weight",
                                   f"{pre}.{attn}.{norm}", None))
         lin(f"{pre}.ffn.0", f"{pre}.ffn_fc1")
@@ -74,6 +80,14 @@ def wan_key_map(cfg: WanModelConfig) -> KeyMap:
         if cfg.cross_attn_norm:
             pairs.append((f"{pre}.norm3.weight", f"{pre}.norm3_weight", None))
             pairs.append((f"{pre}.norm3.bias", f"{pre}.norm3_bias", None))
+    if img:
+        for ref, port in (("0", "norm1"), ("4", "norm2")):
+            pairs.append((f"img_emb.proj.{ref}.weight",
+                          f"img_emb_{port}_weight", None))
+            pairs.append((f"img_emb.proj.{ref}.bias",
+                          f"img_emb_{port}_bias", None))
+        lin("img_emb.proj.1", "img_emb_fc1")
+        lin("img_emb.proj.3", "img_emb_fc2")
     return pairs
 
 

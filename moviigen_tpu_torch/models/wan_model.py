@@ -1,9 +1,15 @@
-"""WanModel — the Wan2.1/MoviiGen diffusion transformer, t2v, in PyTorch.
+"""WanModel — the Wan2.1/MoviiGen diffusion transformer, t2v and i2v, in
+PyTorch.
 
 Counterpart of ``moviigen_tpu/models/wan_model.py`` (3D patch-embed →
 ``num_layers`` AdaLN-modulated blocks of 3D-RoPE self-attention, text
 cross-attention and a GELU-tanh FFN → 2-way-modulated head → unpatchify),
-without the JAX memory streams. The blocks are one ``nn.Module`` each in
+without the JAX memory streams. The i2v variant (``model_type="i2v"``)
+concatenates the conditioning ``y`` to the latents before the patch
+embedding, projects the CLIP features through ``img_emb`` (exact GELU) in
+front of the text tokens, and gives the cross-attention a second key/value
+pair for those 257 image tokens, whose attention output is summed with the
+text one before the o-projection. The blocks are one ``nn.Module`` each in
 an ``nn.ModuleList`` where the JAX package stacks them for ``lax.scan``.
 With ``quant`` (int8 | int4 | w8a8) the block linears are ``QuantLinear``s
 (``ops/quantization.py``); embeddings, modulations, norms and the head
@@ -98,6 +104,15 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU as ``jax.nn.gelu(approximate=False)`` computes it, in
+    x's dtype with a rounding after each op: 0.5·x·erfc(−x·√½). In bf16
+    that is bit-equal to JAX, where ``F.gelu``, rounding once, differs in
+    a third of the values by a step."""
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype, device=x.device)
+    return 0.5 * x * torch.special.erfc(-x * sqrt_half)
+
+
 def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     """[cos | sin] sinusoidal embedding in fp32 (ref model.py:15-25)."""
     half = dim // 2
@@ -129,20 +144,35 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
     return x.reshape(b, out_dim, f * pt, h * ph, w * pw)
 
 
-class Attention(nn.Module):
-    """q/k/v/o projections with full-dim RMS qk-norm scales (fp32)."""
+# The i2v context puts this many CLIP image tokens (CLS + 16 × 16 patches)
+# before the text tokens (ref model.py:206-207, the JAX _i2v_cross_kv).
+IMG_TOKENS = 257
+# The CLIP feature width that ``img_emb`` takes (ViT-H/14).
+CLIP_DIM = 1280
 
-    def __init__(self, cfg: WanModelConfig, dtype, device, quant=None):
+
+class Attention(nn.Module):
+    """q/k/v/o projections with full-dim RMS qk-norm scales (fp32); with
+    ``img`` (the i2v cross-attention) also the image tokens' k_img / v_img
+    and their norm_k_img (ref model.py:194-197)."""
+
+    def __init__(self, cfg: WanModelConfig, dtype, device, quant=None,
+                 img: bool = False):
         super().__init__()
         d = cfg.dim
-        for name in ("q", "k", "v", "o"):
+        self.img = img
+        names = ("q", "k", "v", "o") + (("k_img", "v_img") if img else ())
+        for name in names:
             setattr(self, name, _block_linear(d, d, dtype, device, quant))
-        self.norm_q = self.norm_k = None
+        self.norm_q = self.norm_k = self.norm_k_img = None
         if cfg.qk_norm:
             self.norm_q = nn.Parameter(
                 torch.ones(d, dtype=torch.float32, device=device))
             self.norm_k = nn.Parameter(
                 torch.ones(d, dtype=torch.float32, device=device))
+            if img:
+                self.norm_k_img = nn.Parameter(
+                    torch.ones(d, dtype=torch.float32, device=device))
 
 
 class WanAttentionBlock(nn.Module):
@@ -153,7 +183,8 @@ class WanAttentionBlock(nn.Module):
         d = cfg.dim
         self.cfg = cfg
         self.self_attn = Attention(cfg, dtype, device, quant)
-        self.cross_attn = Attention(cfg, dtype, device, quant)
+        self.cross_attn = Attention(cfg, dtype, device, quant,
+                                    img=cfg.model_type == "i2v")
         self.ffn_fc1 = _block_linear(d, cfg.ffn_dim, dtype, device, quant)
         self.ffn_fc2 = _block_linear(cfg.ffn_dim, d, dtype, device, quant)
         self.modulation = nn.Parameter(
@@ -183,17 +214,35 @@ class WanAttentionBlock(nn.Module):
         b, l = out.shape[:2]
         return _dense(p.o, out.reshape(b, l, cfg.dim), cd)
 
+    def _cross_kv(self, pk, pv, norm_k, context, cd):
+        k, v = _dense_multi([pk, pv], context, cd)
+        if norm_k is not None:
+            k = rms_norm(k, norm_k, eps=self.cfg.eps)
+        return self._heads(k), self._heads(v)
+
     def cross_attention(self, xn, context, cd, backend):
         """ref WanT2VCrossAttention (model.py:159-181): no key mask, so the
-        zero-padded text tokens are attended to, as in the JAX forward."""
+        zero-padded text tokens are attended to, as in the JAX forward.
+        In the i2v block (ref WanI2VCrossAttention, model.py:184-225; the
+        JAX ``_i2v_cross_kv`` / ``_i2v_cross_q_body``) the first
+        ``IMG_TOKENS`` context tokens are the image's, with their own k/v:
+        q is computed once, attends to the text and to the image tokens
+        (neither masked), and the two outputs are summed before the
+        o-projection."""
         p, cfg = self.cross_attn, self.cfg
-        k, v = _dense_multi([p.k, p.v], context, cd)
+        ctx_txt = context[:, IMG_TOKENS:] if p.img else context
+        k, v = self._cross_kv(p.k, p.v, p.norm_k, ctx_txt, cd)
         q = _dense(p.q, xn, cd)
         if cfg.qk_norm:
-            k = rms_norm(k, p.norm_k, eps=cfg.eps)
             q = rms_norm(q, p.norm_q, eps=cfg.eps)
-        out = attention(self._heads(q), self._heads(k), self._heads(v),
-                        k_lens=None, backend=backend, compute_dtype=cd)
+        q = self._heads(q)
+        out = attention(q, k, v, k_lens=None, backend=backend,
+                        compute_dtype=cd)
+        if p.img:
+            k, v = self._cross_kv(p.k_img, p.v_img, p.norm_k_img,
+                                  context[:, :IMG_TOKENS], cd)
+            out = out + attention(q, k, v, k_lens=None, backend=backend,
+                                  compute_dtype=cd)
         b, l = out.shape[:2]
         return _dense(p.o, out.reshape(b, l, cfg.dim), cd)
 
@@ -226,18 +275,18 @@ class WanAttentionBlock(nn.Module):
 
 
 class WanModel(nn.Module):
-    """The t2v DiT (ref WanModel, model.py:372-633).
+    """The t2v or i2v DiT (ref WanModel, model.py:372-633).
 
     Linear weights are ``dtype`` (bf16 for serving); the time embedding,
     time projection, head, modulations and norm scales are fp32, as in
-    the JAX ``init_params``."""
+    the JAX ``init_params``. The i2v model adds ``img_emb`` (ref MLPProj:
+    LayerNorm(1280) → fc1 → exact GELU → fc2 → LayerNorm(dim), its
+    linears ``dtype``, its norms fp32) and the cross-attention's image
+    k/v."""
 
     def __init__(self, cfg: WanModelConfig, dtype=torch.bfloat16,
                  device=None, quant: Optional[str] = None):
         super().__init__()
-        if cfg.model_type != "t2v":
-            raise NotImplementedError(
-                "the port's DiT covers t2v; i2v comes with a later slice")
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be int8|int4|w8a8, got {quant!r}")
         self.cfg = cfg
@@ -257,6 +306,14 @@ class WanModel(nn.Module):
         self.head = nn.Linear(d, math.prod(cfg.patch_size) * cfg.out_dim,
                               **f32)
         self.head_modulation = nn.Parameter(torch.empty(2, d, **f32))
+        if cfg.model_type == "i2v":
+            self.img_emb_norm1_weight = nn.Parameter(
+                torch.ones(CLIP_DIM, **f32))
+            self.img_emb_norm1_bias = nn.Parameter(torch.zeros(CLIP_DIM, **f32))
+            self.img_emb_fc1 = nn.Linear(CLIP_DIM, CLIP_DIM, **kw)
+            self.img_emb_fc2 = nn.Linear(CLIP_DIM, d, **kw)
+            self.img_emb_norm2_weight = nn.Parameter(torch.ones(d, **f32))
+            self.img_emb_norm2_bias = nn.Parameter(torch.zeros(d, **f32))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "WanModel":
@@ -294,10 +351,16 @@ class WanModel(nn.Module):
         return self
 
     def embed_inputs(self, x, t, context, seq_len=None,
-                     compute_dtype=torch.bfloat16):
-        """Patch, time and text embeddings (ref model.py:523-558).
-        Returns (tokens, e fp32, e0 [B, 6, D] fp32, ctx, grid, k_lens)."""
+                     compute_dtype=torch.bfloat16, clip_fea=None, y=None):
+        """Patch, time and text embeddings (ref model.py:523-558); for i2v
+        ``y`` joins the latents on the channel axis before the patch
+        embedding and the projected ``clip_fea`` tokens go before the text
+        tokens in ``ctx`` (the JAX ``embed_inputs``, wan_model.py:
+        1061-1110). Returns (tokens, e fp32, e0 [B, 6, D] fp32, ctx, grid,
+        k_lens)."""
         cfg = self.cfg
+        if y is not None:
+            x = torch.cat([x, y.to(x.dtype)], dim=1)
         b = x.shape[0]
         pt, ph, pw = cfg.patch_size
         grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
@@ -316,6 +379,14 @@ class WanModel(nn.Module):
         e0 = e0.reshape(b, 6, cfg.dim)
         ctx = _dense(self.text_embedding_fc1, context, compute_dtype)
         ctx = _dense(self.text_embedding_fc2, _gelu_tanh(ctx), compute_dtype)
+        if clip_fea is not None:
+            ci = layer_norm(clip_fea, self.img_emb_norm1_weight,
+                            self.img_emb_norm1_bias)
+            ci = _gelu_exact(_dense(self.img_emb_fc1, ci, compute_dtype))
+            ci = _dense(self.img_emb_fc2, ci, compute_dtype)
+            ci = layer_norm(ci, self.img_emb_norm2_weight,
+                            self.img_emb_norm2_bias)
+            ctx = torch.cat([ci.to(ctx.dtype), ctx], dim=1)
         return xt, e, e0, ctx, grid, k_lens
 
     def head_output(self, xr: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -364,15 +435,18 @@ class WanModel(nn.Module):
                 compute_dtype: torch.dtype = torch.bfloat16,
                 attn_backend: str = "auto",
                 residual_dtype: torch.dtype = torch.float32,
-                remat: bool = False, remat_group: int = 1) -> torch.Tensor:
+                remat: bool = False, remat_group: int = 1,
+                clip_fea: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Denoising forward (ref WanModel.forward, model.py:486-579).
 
         x: [B, C_in, F, H, W] latents; t: [B] timesteps; context:
         [B, text_len, text_dim] zero-padded text embeddings; rope: tables
         for the (F/pt, H/ph, W/pw) grid; seq_len: pad the token sequence
         to this length (padded keys are masked); remat, remat_group: see
-        ``run_blocks`` (training). Returns the fp32 prediction
-        [B, C_out, F, H, W]."""
+        ``run_blocks`` (training); clip_fea [B, 257, 1280] and y
+        [B, C_y, F, H, W]: the i2v conditioning (both or neither, i2v
+        only). Returns the fp32 prediction [B, C_out, F, H, W]."""
         cfg = self.cfg
         knobs = [k for k in cfg.memory_knobs() if getattr(cfg, k) is not None]
         if knobs:
@@ -380,8 +454,14 @@ class WanModel(nn.Module):
                 f"memory knobs {knobs} are not implemented in the port "
                 "(they do not change the maths; one 80 GB card does not "
                 "need them at 480p/720p)")
+        if (cfg.model_type == "i2v") != (clip_fea is not None) \
+                or (clip_fea is None) != (y is None):
+            raise ValueError(f"a {cfg.model_type} DiT takes clip_fea and y "
+                             + ("both" if cfg.model_type == "i2v"
+                                else "neither"))
         xt, e, e0, ctx, grid, k_lens = self.embed_inputs(
-            x, t, context, seq_len=seq_len, compute_dtype=compute_dtype)
+            x, t, context, seq_len=seq_len, compute_dtype=compute_dtype,
+            clip_fea=clip_fea, y=y)
         xr = self.run_blocks(xt.to(residual_dtype), e0, ctx, rope, k_lens,
                              compute_dtype, attn_backend, remat, remat_group)
         out = self.head_output(xr, e)

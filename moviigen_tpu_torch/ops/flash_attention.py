@@ -23,15 +23,19 @@ Each kernel has a plain twin here with the same arithmetic:
 | ``flash_fwd.cu`` stats variant     | ``_flash_kernel_stats``  | ``flash_attention_stats_plain``|
 | ``flash_bwd.cu`` dKV               | ``_flash_bwd_dkv_kernel``| ``flash_bwd_plain``            |
 | ``flash_bwd.cu`` dQ                | ``_flash_bwd_dq_kernel`` | ``flash_bwd_plain``            |
+| ``flash_fwd_f32.cu`` fp32 forward  | ``_flash_kernel`` (fp32) | ``flash_attention_plain``      |
 
 A CUDA tensor goes to the kernels, a CPU tensor to the twins. There is no
 fallback between the two: what a kernel does not take raises. Under
 autograd (grad enabled and an input that requires it) ``flash_attention``
 goes through ``FlashAttention``, the counterpart of the ``_flash`` custom
 VJP: the stats forward, then the two backward kernels; otherwise it runs
-the forward-only kernel. Each wrapper counts its launches on
+the forward-only kernel: ``flash_fwd.cu`` for bf16 with D = 128,
+``flash_fwd_f32.cu`` for fp32 with D a multiple of 8 up to 128 (the CLIP
+tower of i2v, D = 80, which neither package differentiates: fp32 CUDA
+tensors under autograd raise). Each wrapper counts its launches on
 ``flash_attention`` (``launches``, ``stats_launches``, ``dkv_launches``,
-``dq_launches``).
+``dq_launches``, ``f32_launches``).
 
 All four are built for Hopper: every product is a ``wgmma`` on
 128-byte-swizzled shared tiles that a producer warp fills by TMA through an
@@ -59,7 +63,10 @@ import torch
 LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)
-COUNTERS = ("launches", "stats_launches", "dkv_launches", "dq_launches")
+# the fp32 forward (csrc/flash_fwd_f32.cu) takes D a multiple of 8 up to this
+F32_MAX_HEAD_DIM = 128
+COUNTERS = ("launches", "stats_launches", "dkv_launches", "dq_launches",
+            "f32_launches")
 
 
 def _qscale(scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -179,34 +186,45 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ------------------------------------------------------------ the kernels
 
 
-def _check_kernel_operand(name: str, x: torch.Tensor, device) -> None:
+def _check_kernel_operand(name: str, x: torch.Tensor, device,
+                          dtype: torch.dtype = torch.bfloat16) -> None:
+    """bf16 operands (the TMA kernels): strides multiples of 8 elements,
+    16-byte aligned; fp32 ones (``flash_fwd_f32.cu``, float2 loads): even
+    strides, 8-byte aligned."""
     if not x.is_cuda or x.device != device:
         raise ValueError(f"flash kernel: {name} is not on {device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel: {name} must be bfloat16, got {x.dtype}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]):
+    if x.dtype != dtype:
+        raise TypeError(f"flash kernel: {name} must be {dtype}, got "
+                        f"{x.dtype}")
+    step, align = (8, 16) if dtype == torch.bfloat16 else (2, 8)
+    if x.stride(-1) != 1 or any(s % step for s in x.stride()[:-1]):
         raise ValueError(
             f"flash kernel: {name} needs unit stride on D and strides that "
-            f"are multiples of 8 elements, got {tuple(x.stride())}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"flash kernel: {name} is not 16-byte aligned")
+            f"are multiples of {step} elements, got {tuple(x.stride())}")
+    if x.data_ptr() % align:
+        raise ValueError(f"flash kernel: {name} is not {align}-byte aligned")
 
 
-def _check_qkv(q, k, v, k_lens):
-    """Validate q/k/v for the kernels; returns (b, lq, lk, n, d, k_lens as
-    a contiguous int32 device tensor or None)."""
+def _check_qkv(q, k, v, k_lens, dtype: torch.dtype = torch.bfloat16):
+    """Validate q/k/v for the bf16 kernels or, with ``dtype`` fp32, the
+    fp32 forward; returns (b, lq, lk, n, d, k_lens as a contiguous int32
+    device tensor or None)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash kernel: q, k, v must be [B, L, N, D]")
     b, lq, n, d = q.shape
     lk = k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
+    if dtype == torch.bfloat16 and d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head dim D={d} is not supported "
-                         f"(supported: {KERNEL_HEAD_DIMS})")
+                         f"in bf16 (supported: {KERNEL_HEAD_DIMS})")
+    if dtype == torch.float32 and (d % 8 or not 0 < d <= F32_MAX_HEAD_DIM):
+        raise ValueError(f"flash kernel: head dim D={d} is not supported "
+                         "in fp32 (a multiple of 8 up to "
+                         f"{F32_MAX_HEAD_DIM})")
     if k.shape != (b, lk, n, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_operand(name, x, q.device)
+        _check_kernel_operand(name, x, q.device, dtype)
     if k_lens is not None:
         if k_lens.shape != (b,):
             raise ValueError(f"flash kernel: k_lens must be [{b}], got "
@@ -272,11 +290,36 @@ def _fwd_cuda(q, k, v, k_lens, scale, stats: bool):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          k_lens: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the forward kernel on the current stream. Raises on what it
-    does not take; never falls back. Not differentiable: see
+    """Launch the forward kernel of q's dtype on the current stream: bf16
+    (D = 128) ``flash_fwd.cu``, fp32 ``flash_attention_f32_cuda``. Raises
+    on what neither takes; never falls back. Not differentiable: see
     ``FlashAttention``."""
+    if q.dtype == torch.float32:
+        return flash_attention_f32_cuda(q, k, v, k_lens, scale)
     (out,) = _fwd_cuda(q, k, v, k_lens, scale, stats=False)
     flash_attention.launches += 1
+    return out
+
+
+def flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             k_lens: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the fp32 forward (``csrc/flash_fwd_f32.cu``) on the current
+    stream: fp32 [B, L, N, D] with D a multiple of 8 up to 128, read
+    through their strides (views of one fused qkv buffer need no copy).
+    Raises on anything else; never falls back. Not differentiable."""
+    b, lq, lk, n, d, k_lens = _check_qkv(q, k, v, k_lens, torch.float32)
+    if scale is None:
+        scale = d ** -0.5
+    out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    fn = _kernel_fn("flash_fwd_f32", "flash_fwd_f32", _FWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             _ptr(k_lens), b, n, lq, lk, d, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+             float(_qscale(scale, q.dtype)), _stream(q))
+    _raise_on(err, "flash fp32 kernel")
+    flash_attention.f32_launches += 1
     return out
 
 
@@ -452,10 +495,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused non-causal attention over [B, L, N, D]. CUDA tensors run the
     Hopper kernels, CPU tensors their plain twins; under autograd through
     ``FlashAttention`` (stats forward + backward kernels), otherwise the
-    forward-only kernel."""
+    forward-only kernel of q's dtype. fp32 CUDA tensors under autograd
+    raise: no kernel differentiates fp32 (the CLIP tower, the one fp32
+    caller, is never trained)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if needs_grad(q, k, v):
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"flash attention: no kernel differentiates {q.dtype} on "
+                "the card (the fp32 forward serves the CLIP tower, which is "
+                "never trained); run it under torch.no_grad()")
         return FlashAttention.apply(q, k, v, k_lens, scale, q.is_cuda)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, k_lens, scale)

@@ -205,7 +205,11 @@ class WanT2V:
                 gen = torch.Generator(device=dev).manual_seed(init_seed)
                 self.t5 = T5Encoder(config.t5, dtype=t5_dtype, device=dev,
                                     quant_bits=t5_bits).init_weights(gen)
-                self.vae_params = vaem.init_params(config.vae, gen, device=dev)
+                # the encoder too where requests encode (i2v); a t2v
+                # pipeline only decodes
+                self.vae_params = vaem.init_params(
+                    config.vae, gen, device=dev,
+                    encoder=config.model.model_type == "i2v")
                 self.dit = WanModel(config.model, dtype=dtype, device=dev,
                                     quant=quant).init_weights(gen)
                 tok_path = config.t5_tokenizer
@@ -410,22 +414,39 @@ class WanT2V:
         seeded initial latent. Per-phase seconds land in ``self.timings``
         (t5_s, step_s list, decode_s; dit_unpark_s when the previous
         request parked the DiT, dit_park_s when this one does)."""
-        cfg = self.config
-        target_shape, seq_len, grid = compute_target_shape_and_seq_len(
-            cfg, size, frame_num)
+        ctx_pair = self._start_request(input_prompt, n_prompt)
+        latent = self._sample(ctx_pair, size, frame_num, shift,
+                              sample_solver, sampling_steps, guide_scale,
+                              seed, noise)
+        if return_latents:
+            return latent[0].cpu().numpy()
+        return self.decode_request(latent)
+
+    def _start_request(self, input_prompt: str, n_prompt: str):
+        """A request's first stage: fresh ``self.timings``, the DiT back on
+        the device, the prompt and the negative prompt encoded (t5_s).
+        Returns the context pair [2, text_len, t5_dim]."""
         if n_prompt == "":
             n_prompt = self.sample_neg_prompt
-        if seed < 0:
-            seed = int.from_bytes(os.urandom(4), "little")
-        timings = {"step_s": []}
-        self.timings = timings
+        self.timings = {"step_s": []}
         self.unpark_dit()
-
         t0 = time.perf_counter()
         ctx_pair = self.encode_text([input_prompt, n_prompt])
         self._sync()
-        timings["t5_s"] = time.perf_counter() - t0
+        self.timings["t5_s"] = time.perf_counter() - t0
+        return ctx_pair
 
+    def _sample(self, ctx_pair, size, frame_num, shift, sample_solver,
+                sampling_steps, guide_scale, seed, noise, **cond):
+        """The CFG-guided denoise loop from the seeded (or given) noise;
+        returns the final latent [1, z, F', H', W'] (step_s). ``cond``:
+        further per-sample DiT inputs (the i2v ``clip_fea`` [1, ...] and
+        ``y`` [1, ...]), repeated for the batched CFG pair."""
+        cfg = self.config
+        target_shape, seq_len, grid = compute_target_shape_and_seq_len(
+            cfg, size, frame_num)
+        if seed < 0:
+            seed = int.from_bytes(os.urandom(4), "little")
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             latent = torch.randn((1, *target_shape), generator=gen,
@@ -450,11 +471,12 @@ class WanT2V:
 
         rope = rope_3d_freqs(grid, cfg.model.head_dim, device=self.device)
         batched = cfg_batched(cfg.model.dim, seq_len)
+        cond2 = {k: v.expand(2, *v.shape[1:]) for k, v in cond.items()}
 
-        def fwd(x, t, ctx):
+        def fwd(x, t, ctx, extra):
             return self.dit(x, t, ctx, rope, seq_len=seq_len,
                             attn_backend=self.attn_backend,
-                            residual_dtype=self.residual_dtype)
+                            residual_dtype=self.residual_dtype, **extra)
 
         logging.info("denoising: %d %s steps at %d tokens (%s CFG)",
                      sampling_steps, sample_solver, seq_len,
@@ -466,20 +488,16 @@ class WanT2V:
                                device=self.device)
             if batched:
                 pred = fwd(latent.expand(2, *target_shape), t_dev.expand(2),
-                           ctx_pair)
-                cond, uncond = pred[:1], pred[1:]
+                           ctx_pair, cond2)
+                cond_pred, uncond = pred[:1], pred[1:]
             else:
-                cond = fwd(latent, t_dev, ctx_pair[:1])
-                uncond = fwd(latent, t_dev, ctx_pair[1:])
-            noise_pred = uncond + guide_scale * (cond - uncond)
+                cond_pred = fwd(latent, t_dev, ctx_pair[:1], cond)
+                uncond = fwd(latent, t_dev, ctx_pair[1:], cond)
+            noise_pred = uncond + guide_scale * (cond_pred - uncond)
             latent, state = scheduler.step(noise_pred, i, latent, state)
             self._sync()
-            timings["step_s"].append(time.perf_counter() - ts)
-
-        if return_latents:
-            return latent[0].cpu().numpy()
-
-        return self.decode_request(latent)
+            self.timings["step_s"].append(time.perf_counter() - ts)
+        return latent
 
     def unpark_dit(self) -> None:
         """Move a DiT parked by the last decode back to the device

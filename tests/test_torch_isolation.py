@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax():
                 "data.video_reader", "data.transforms", "data.t2v_dataset",
                 "cli.preprocess", "cli.preprocess_stages",
                 "cli.video_tools", "training.lora", "training.ot",
-                "cli.valid_training"):
+                "cli.valid_training", "models.clip", "ops.resize",
+                "pipelines.image2video"):
         assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -263,6 +263,101 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_bwd_cuda(q, k, q, None, q, m, m, q)
 
 
+# ------------------------------------------------------ the fp32 forward
+
+# fp32 kernel vs plain twin: both are full fp32 (no TF32) and differ only
+# in the order of their sums (64-key tiles against 512-key blocks, four
+# partial dot products joined by shuffles against cuBLAS); that moves the
+# output by a few fp32 ulps of its scale (~1e-7). 1e-5 of the output's
+# largest magnitude bounds that with margin; a wrong tile, mask or scale
+# is off by O(1).
+F32_REL_TOL = 1e-5
+# (B, Lq, Lk, N, D, k_lens): the CLIP tower's shape (257 tokens, 16 heads
+# of 80); D = 64; a ragged Lq and a k_lens inside the last key tile and
+# under one tile; few queries and many keys.
+F32_SHAPES = [(1, 257, 257, 16, 80, None), (2, 257, 257, 4, 64, None),
+              (2, 130, 200, 3, 80, (200, 37)), (1, 40, 700, 2, 64, (650,)),
+              (2, 77, 77, 2, 128, (77, 1))]
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain twin's fp32 matmuls in full fp32."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _f32_qkv(gen, b, lq, lk, n, d):
+    return [torch.randn(b, l, n, d, generator=gen, device="cuda")
+            for l in (lq, lk, lk)]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", F32_SHAPES)
+def test_f32_kernel_matches_plain(cuda, no_tf32, b, lq, lk, n, d, k_lens):
+    q, k, v = _f32_qkv(cuda, b, lq, lk, n, d)
+    kl = _klens(k_lens)
+    counts = tfa.launch_counts()
+    got = tfa.flash_attention(q, k, v, kl)
+    after = tfa.launch_counts()
+    assert after["f32_launches"] == counts["f32_launches"] + 1
+    assert after["launches"] == counts["launches"]
+    _close(got, tfa.flash_attention_plain(q, k, v, kl), F32_REL_TOL)
+
+
+def test_f32_kernel_reads_a_fused_qkv_buffer(cuda, no_tf32):
+    """The CLIP's q, k and v: views of one [B, L, 3, N, D] to_qkv output,
+    read through their strides."""
+    qkv = torch.randn(1, 257, 3, 16, 80, generator=cuda, device="cuda")
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    _close(tfa.flash_attention(q, k, v),
+           tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous()), F32_REL_TOL)
+
+
+def test_f32_kernel_is_deterministic(cuda):
+    q, k, v = _f32_qkv(cuda, 1, 257, 257, 16, 80)
+    assert torch.equal(tfa.flash_attention_cuda(q, k, v),
+                       tfa.flash_attention_cuda(q, k, v))
+
+
+def test_f32_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 16, 2, 84, device="cuda")
+    with pytest.raises(ValueError, match="D=84"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 2, 136, device="cuda")
+    with pytest.raises(ValueError, match="D=136"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 2, 81, device="cuda")[..., :80]
+    with pytest.raises(ValueError, match="multiples of 2"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 2, 80, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no kernel differentiates"):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="no kernel differentiates"):
+        attention(q, q, q, compute_dtype=torch.float32)
+
+
+def test_bf16_kernel_at_the_image_cross_shape(cuda):
+    """The i2v DiT's image cross-attention: 257 keys, so the last 128-key
+    tile holds one real key and 127 zero-filled rows (B=2, 7,800 queries
+    cut to 1,000 here, 8 heads)."""
+    q, k, v = _qkv(cuda, 2, 1000, 257)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before + 1
+    _close(got, tfa.flash_attention_plain(q, k, v))
+    # the one key of the last tile is attended to: moving it moves the rows
+    k2, v2 = k.clone(), v.clone()
+    v2[:, 256] += 4.0
+    k2[:, 256] = k[:, 0]
+    moved = tfa.flash_attention(q, k2, v2)
+    _close(moved, tfa.flash_attention_plain(q, k2, v2))
+    assert float((moved.float() - got.float()).abs().max()) > 1e-2
+
+
 # ------------------------------------------------------------- int8 GEMM
 
 # (M, K, N): ragged row tiles, a K tail shorter than one 128-byte slice, an
@@ -615,7 +710,8 @@ def test_lora_adapter_grads_on_cuda_match_plain(cuda, quant):
         grads[backend] = torch.autograd.grad(loss, params)
         counts = tfa.launch_counts()
         sites = 2 * cfg.num_layers
-        assert counts == (dict(launches=0, stats_launches=2 * sites,
+        assert counts == (dict(dict.fromkeys(tfa.COUNTERS, 0),
+                               stats_launches=2 * sites,
                                dkv_launches=sites, dq_launches=sites)
                           if backend == "auto"
                           else dict.fromkeys(tfa.COUNTERS, 0))

@@ -1,8 +1,8 @@
 """The port's preprocessing path against the JAX package's: the dataset's
 pixel values, ``cli.preprocess`` over one reference-layout checkpoint
 directory (same files, latents, embeddings and annotations), resume and
-sharding, the split stages, the i2v refusal, and fine-tuning on the
-port's own caches.
+sharding, the split stages, and fine-tuning on the port's own caches
+(``--dataset i2v``: ``tests/test_torch_i2v.py``).
 
 The raw clips are ``tests/test_preprocess.py``'s: four 24-frame 36×64
 ``.npy`` videos at 16 fps, cropped to 32×48 at 9 frames. Both CLIs read
@@ -243,13 +243,6 @@ def test_validation_stage_matches_jax(runs, tmp_path):
             np.load(os.path.join(jdir, name))
         assert got.shape == want.shape
         assert np.linalg.norm(got - want) < 3e-2 * np.linalg.norm(want)
-
-
-def test_i2v_is_refused_naming_its_item(runs, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tpre.main(runs["common"] + ["--device", "cpu", "--dataset", "i2v",
-                                    "--output_dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("signum", [signal.SIGINT, signal.SIGTERM])
