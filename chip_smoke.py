@@ -8,16 +8,17 @@ NVIDIA Hopper card.
 Phases:
  1. setup: card name and power limit, TF32 off, build the CUDA kernels
     (``flash_fwd``, ``flash_bwd``, ``int8_gemm``, ``quantize_act`` and
-    ``flash_fwd_f32``, and
-    the earlier ``mma.sync`` designs of the forward and of the int8 GEMM
-    as their yardsticks, one ``nvcc`` each, in parallel);
+    ``flash_fwd_f32``, and the earlier designs of the forward, the int8
+    GEMM (``mma.sync``) and the fp32 forward (fp32 FMAs) as their
+    yardsticks, one ``nvcc`` each, in parallel);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes of the serving (the i2v image cross-attention's 257 keys
     included), the CLIP's fp32 attention, the training and the W8A8 path,
-    with times,
-    bounds and the library yardsticks (the forward, its stats variant and
-    the int8 GEMM also beside their design before the Hopper redesign, and
-    with SM clock and power under load at the main shapes);
+    with times, bounds and the library yardsticks (the forward, its stats
+    variant, the fp32 forward and the int8 GEMM also beside their design
+    before the Hopper redesign, and with SM clock and power under load at
+    the main shapes; the fp32 forward's µs-scale times are device times
+    of single calls queued behind a spin of the card, medians of 200);
  3. the t2v-14B DiT at full width (depth cut) with the kernel against the
     plain attention; then quantized: W8A8 through the int8 GEMM and the
     activation-quantization kernels against their plain versions, int8
@@ -103,10 +104,15 @@ FWD_BEFORE_SOURCE = (pathlib.Path(__file__).resolve().parent / "tools"
 # the same kind of yardstick.
 GEMM_BEFORE = "int8_gemm_mma_sync"
 GEMM_BEFORE_SOURCE = FWD_BEFORE_SOURCE.parent / f"{GEMM_BEFORE}.cu"
+# The fp32 forward's first design (fp32 FMAs, loads between barriers), the
+# same kind of yardstick for its 3xTF32 redesign.
+F32_BEFORE = "flash_fwd_f32_simple"
+F32_BEFORE_SOURCE = FWD_BEFORE_SOURCE.parent / f"{F32_BEFORE}.cu"
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Main-path shapes at t2v-14B: 832*480, 17 frames -> 7,800 tokens (batched
@@ -127,10 +133,11 @@ FLASH_CASES = [
 ]
 # The fp32 forward (the CLIP tower's attention) at its shapes: ViT-H/14 at
 # one image (257 tokens, 16 heads of 80), and a ragged Lq with k_lens
-# inside the last key tile. Both versions are full fp32 (TF32 off) and
-# differ only in the order of their sums, a few fp32 ulps of the output's
-# scale; 1e-5 of it bounds that, a wrong tile, mask or scale is off by
-# O(1).
+# inside the last key tile. The plain twin is full fp32 (TF32 off); the
+# kernel's 3xTF32 products drop ~2^-21 of each product, and the two sum in
+# another order: a few fp32 ulps of the output's scale. 1e-5 of it bounds
+# that; a wrong tile, mask or scale is off by O(1), and one TF32 pass (a
+# dropped split) by ~5e-4.
 F32_CASES = [
     # name, B, Lq, Lk, N, D, k_lens (None = no mask)
     ("q_clip_B1_L257_N16_D80", 1, 257, 257, 16, 80, None),
@@ -201,6 +208,10 @@ BIAS_MODES = [("no_bias", False, False), ("bias", True, False),
 # divisions correctly rounded, round half to even, as in the plain
 # version).
 QUANT_CASES = [(15600, 5120), (15600, 13824), (32760, 5120), (1024, 5120)]
+# A spin of the card (torch.cuda._sleep, ~1 ms at the H100's clocks) queued
+# before each timed call of a µs-scale kernel, so that the call's host
+# share is hidden and its events bracket only its kernels.
+FENCE_CYCLES = 2_000_000
 
 
 def log(msg: str) -> None:
@@ -224,6 +235,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_times(fn, iters, warmup=10):
+    """Device milliseconds of ``iters`` single calls of ``fn`` (CUDA
+    events), each queued behind a ``FENCE_CYCLES`` spin of the card that
+    outlasts the host's share of the call: the events bracket only the
+    call's kernels, where ``cuda_ms`` also counts the host's launch."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(FENCE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in pairs]
 
 
 def clocks_under_load(fn, ms, samples=5):
@@ -307,9 +341,10 @@ def phase_setup(report):
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    secs = kernels.build(kernels.KERNELS + (FWD_BEFORE, GEMM_BEFORE),
-                         {FWD_BEFORE: FWD_BEFORE_SOURCE,
-                          GEMM_BEFORE: GEMM_BEFORE_SOURCE})
+    secs = kernels.build(
+        kernels.KERNELS + (FWD_BEFORE, GEMM_BEFORE, F32_BEFORE),
+        {FWD_BEFORE: FWD_BEFORE_SOURCE, GEMM_BEFORE: GEMM_BEFORE_SOURCE,
+         F32_BEFORE: F32_BEFORE_SOURCE})
     log(f"phase 1: built kernels {secs} in {time.perf_counter() - t0:.1f} s")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
@@ -406,8 +441,13 @@ def phase_kernels(report):
 
 def f32_kernel_cases(report):
     """The fp32 forward (``csrc/flash_fwd_f32.cu``) at the CLIP's shapes
-    against its plain twin (TF32 off), with its bound on the card's fp32
-    rate and fp32 SDPA as the library yardstick."""
+    against its plain twin (TF32 off), with its bound on the path it takes
+    (3xTF32 at the TF32 peak, beside the fp32-FMA and byte bounds), its
+    first design (``F32_BEFORE``) and fp32 SDPA as the library yardstick.
+    Device times (``device_times``): the kernel and its first design take
+    turns (kernel, first, first, kernel), 100 calls each, the median of
+    200; also the single-call time with the host's launch (``cuda_ms``,
+    the method of the rows before the redesign)."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -426,26 +466,44 @@ def f32_kernel_cases(report):
         torch.cuda.synchronize()
         max_abs, rel = _check(name, "out", got, want, F32_REL_TOL)
         keys = sum(lk_eff)
-        bound_ms, bound_by = _bound(4.0 * n * lq * d * keys,
-                                    4.0 * n * d * (2 * b * lq + 2 * keys),
-                                    peak_ops=PEAK_FP32_FLOPS)
+        flops = 4.0 * n * lq * d * keys
+        nbytes = 4.0 * n * d * (2 * b * lq + 2 * keys)
+        bound_ms, bound_by = _bound(3 * flops, nbytes,
+                                    peak_ops=PEAK_TF32_FLOPS)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         mask = None
         if k_lens is not None:
             mask = (torch.arange(lk, device=DEVICE)[None, :]
                     < k_lens[:, None])[:, None, None, :]
+
+        def kernel():
+            return fa.flash_attention_f32_cuda(q, k, v, k_lens)
+
+        times = {"kernel": [], "before": []}
+        for which in ("kernel", "before", "before", "kernel"):
+            if which == "kernel":
+                times[which] += device_times(kernel, 100)
+            else:
+                with before_redesign("flash_fwd_f32", F32_BEFORE_SOURCE):
+                    times[which] += device_times(kernel, 100)
+        ms = statistics.median(times["kernel"])
+        with before_redesign("flash_fwd_f32", F32_BEFORE_SOURCE):
+            before_call_ms = cuda_ms(kernel, iters=200, warmup=20)
         row = dict(case=name, B=b, Lq=lq, Lk=lk, N=n, D=d, k_lens=lk_eff,
-                   max_abs_err=max_abs, rel_err=rel,
-                   ms=cuda_ms(lambda: fa.flash_attention_f32_cuda(
-                       q, k, v, k_lens), iters=50, warmup=5),
-                   plain_ms=cuda_ms(lambda: fa.flash_attention_plain(
-                       q, k, v, k_lens), iters=50, warmup=5),
-                   library_ms=cuda_ms(lambda: sdpa(qt, kt, vt,
-                                                   attn_mask=mask),
-                                      iters=50, warmup=5),
-                   library="SDPA fp32", bound_ms=bound_ms,
-                   bound_by=bound_by)
-        row["bound_share"] = bound_ms / row["ms"]
+                   max_abs_err=max_abs, rel_err=rel, ms=ms,
+                   before_redesign_ms=statistics.median(times["before"]),
+                   plain_ms=statistics.median(device_times(
+                       lambda: fa.flash_attention_plain(q, k, v, k_lens),
+                       200)),
+                   library_ms=statistics.median(device_times(
+                       lambda: sdpa(qt, kt, vt, attn_mask=mask), 200)),
+                   library="SDPA fp32",
+                   call_ms=cuda_ms(kernel, iters=200, warmup=20),
+                   before_redesign_call_ms=before_call_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_fp32_fma_ms=flops / PEAK_FP32_FLOPS * 1e3,
+                   bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3)
+        row["bound_share"] = bound_ms / ms
         log("phase 2: flash f32 " + json.dumps(row))
         rows.append(row)
     report["f32_cases"] = rows
@@ -760,8 +818,14 @@ def kernels_line(report):
                 "i2v preprocess (phase 12d)": report.get(
                     "i2v_preprocess_launches", {}).get("f32_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in f32),
-            "ms": main32["ms"], "plain_ms": main32["plain_ms"],
+            "design": "3xTF32 on mma.sync m16n8k8 tensor cores, a 2-stage "
+                      "cp.async K/V ring of 64-key tiles, 32-row blocks of "
+                      "2 x 2 warps (two key slices merged at the end)",
+            "ms": main32["ms"],
+            "before_redesign_ms": main32["before_redesign_ms"],
+            "plain_ms": main32["plain_ms"],
             "bound_ms": main32["bound_ms"], "bound_by": main32["bound_by"],
+            "bound_share": main32["bound_share"],
             "library_ms": main32["library_ms"],
             "cases": f32,
         })
@@ -2795,13 +2859,21 @@ def phase_i2v(report):
 
     import torch
 
+    memory = report.setdefault("i2v_memory_gib", {})
     for sub in (phase_i2v_clip, phase_i2v_dit, phase_i2v_request,
                 phase_i2v_preprocess):
         sub(report)
+        # what the sub-phase left behind, before and after the cyclic
+        # collector: the two agree unless something outlives its scope in
+        # a reference cycle
+        before = torch.cuda.memory_allocated() / 2**30
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"phase 12: after {sub.__name__} "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        after = torch.cuda.memory_allocated() / 2**30
+        memory[sub.__name__] = dict(before_collect=before,
+                                    after_collect=after)
+        log(f"phase 12: after {sub.__name__} {before:.2f} GiB allocated "
+            f"before gc.collect(), {after:.2f} after")
 
 
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import html
 import re
 import string
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -117,19 +118,42 @@ class HashTokenizer:
         return (ids, mask) if return_mask else (ids, None)
 
 
+def _huggingface_or_none(**kwargs) -> Optional[HuggingfaceTokenizer]:
+    """``HuggingfaceTokenizer(**kwargs)``, or None if it fails, built in a
+    thread of its own. A failed attempt (and the first import of
+    ``transformers`` it runs) leaves frames in reference cycles; in the
+    caller's thread their ``f_back`` chain would reach the caller's frames
+    (a pipeline's ``__init__``, and with it the whole pipeline) and keep
+    them until the cyclic collector runs. In a thread of its own the chain
+    ends at the thread."""
+    out = {}
+
+    def attempt():
+        try:
+            out["tokenizer"] = HuggingfaceTokenizer(**kwargs)
+        except Exception:
+            pass  # the caller falls back
+
+    thread = threading.Thread(target=attempt, name="load_tokenizer")
+    thread.start()
+    thread.join()
+    return out.get("tokenizer")
+
+
 def load_tokenizer(name_or_path: str, seq_len: int,
                    clean: str = "whitespace",
                    vocab_size: int = 256384):
     """HF tokenizer if assets resolve locally, else the hash fallback
-    (bounded to the model's vocab)."""
-    try:
-        return HuggingfaceTokenizer(
-            name=name_or_path, seq_len=seq_len, clean=clean,
-            local_files_only=True)
-    except Exception:
-        import logging
+    (bounded to the model's vocab). Nothing of a failed attempt keeps the
+    caller alive: it is freed by reference counting alone."""
+    tokenizer = _huggingface_or_none(
+        name=name_or_path, seq_len=seq_len, clean=clean,
+        local_files_only=True)
+    if tokenizer is not None:
+        return tokenizer
+    import logging
 
-        logging.warning(
-            "tokenizer assets for %r unavailable; using deterministic "
-            "hash fallback (smoke-test mode)", name_or_path)
-        return HashTokenizer(seq_len=seq_len, vocab_size=vocab_size)
+    logging.warning(
+        "tokenizer assets for %r unavailable; using deterministic "
+        "hash fallback (smoke-test mode)", name_or_path)
+    return HashTokenizer(seq_len=seq_len, vocab_size=vocab_size)

@@ -46,7 +46,10 @@ products, and prescales q in shared memory. Where there are few keys (the
 512-token cross-attention), ``dkv_query_splits`` cuts the dKV query loop
 into chunks whose fp32 partial sums a second kernel adds in a fixed order.
 q, k, v and dO are read in place through tensor maps made from their
-strides.
+strides. The fp32 forward runs both products in 3xTF32 (each operand split
+into two TF32 halves, three products) on ``mma.sync`` tensor cores, fed by
+a ``cp.async`` K/V ring, and reads q, k, v through their strides (multiples
+of 4 elements, 16-byte aligned).
 
 A batch entry whose ``k_lens`` is 0 attends to nothing and gives zeros
 here, in both versions (the Pallas kernel averages v over its padded key
@@ -189,14 +192,14 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_kernel_operand(name: str, x: torch.Tensor, device,
                           dtype: torch.dtype = torch.bfloat16) -> None:
     """bf16 operands (the TMA kernels): strides multiples of 8 elements,
-    16-byte aligned; fp32 ones (``flash_fwd_f32.cu``, float2 loads): even
-    strides, 8-byte aligned."""
+    16-byte aligned; fp32 ones (``flash_fwd_f32.cu``, 16-byte cp.async):
+    strides multiples of 4 elements, 16-byte aligned."""
     if not x.is_cuda or x.device != device:
         raise ValueError(f"flash kernel: {name} is not on {device}")
     if x.dtype != dtype:
         raise TypeError(f"flash kernel: {name} must be {dtype}, got "
                         f"{x.dtype}")
-    step, align = (8, 16) if dtype == torch.bfloat16 else (2, 8)
+    step, align = (8, 16) if dtype == torch.bfloat16 else (4, 16)
     if x.stride(-1) != 1 or any(s % step for s in x.stride()[:-1]):
         raise ValueError(
             f"flash kernel: {name} needs unit stride on D and strides that "

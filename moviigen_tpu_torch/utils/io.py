@@ -61,7 +61,7 @@ def cache_video(tensor, save_file: Optional[str] = None, fps: int = 30,
             writer.close()
             return cache_file
         except Exception as e:  # no ffmpeg backend, bad container, ...
-            error = e
+            error = str(e)  # not e: a cycle through its traceback
     # OpenCV ships its own ffmpeg: try mp4v before giving up on .mp4
     if suffix == ".mp4" or cache_file.endswith(".mp4"):
         try:
@@ -77,7 +77,7 @@ def cache_video(tensor, save_file: Optional[str] = None, fps: int = 30,
                 return cache_file
             writer.release()
         except Exception as e:
-            error = e
+            error = str(e)
     # fallbacks for environments without an mp4 encoder
     for alt_suffix, saver in ((".gif", "gif"), (".npz", "npz")):
         alt = osp.splitext(cache_file)[0] + alt_suffix
@@ -92,7 +92,7 @@ def cache_video(tensor, save_file: Optional[str] = None, fps: int = 30,
                             error, alt)
             return alt
         except Exception as e:
-            error = e
+            error = str(e)
     logging.error("cache_video failed: %s", error)
     return None
 
@@ -122,7 +122,7 @@ def cache_image(tensor, save_file: str, nrow: int = 8,
             imageio.imwrite(save_file, frame)
             return save_file
         except Exception as e:
-            error = e
+            error = str(e)
     logging.error("cache_image failed: %s", error)
     return None
 

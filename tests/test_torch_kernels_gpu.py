@@ -265,12 +265,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 # ------------------------------------------------------ the fp32 forward
 
-# fp32 kernel vs plain twin: both are full fp32 (no TF32) and differ only
-# in the order of their sums (64-key tiles against 512-key blocks, four
-# partial dot products joined by shuffles against cuBLAS); that moves the
-# output by a few fp32 ulps of its scale (~1e-7). 1e-5 of the output's
-# largest magnitude bounds that with margin; a wrong tile, mask or scale
-# is off by O(1).
+# fp32 kernel vs plain twin: the twin is full fp32 (no TF32); the kernel's
+# 3xTF32 products drop ~2^-21 of each product (fp32's own order), and the
+# two sum in another order (64-key tiles in two key slices against
+# 512-key blocks, tensor-core k-steps against cuBLAS); that moves the
+# output by a few fp32 ulps of its scale (~1e-7..1e-6). 1e-5 of the
+# output's largest magnitude bounds that with margin; a wrong tile, mask
+# or scale is off by O(1), and one TF32 pass (a dropped split) by ~5e-4.
 F32_REL_TOL = 1e-5
 # (B, Lq, Lk, N, D, k_lens): the CLIP tower's shape (257 tokens, 16 heads
 # of 80); D = 64; a ragged Lq and a k_lens inside the last key tile and
@@ -331,13 +332,93 @@ def test_f32_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="D=136"):
         tfa.flash_attention(q, q, q)
     q = torch.zeros(1, 16, 2, 81, device="cuda")[..., :80]
-    with pytest.raises(ValueError, match="multiples of 2"):
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tfa.flash_attention(q, q, q)
+    # 16-byte cp.async: even strides and 8-byte bases are not enough
+    q = torch.zeros(1, 16, 2, 82, device="cuda")[..., :80]
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros(16 * 2 * 80 + 2, device="cuda")[2:].view(1, 16, 2, 80)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         tfa.flash_attention(q, q, q)
     q = torch.zeros(1, 16, 2, 80, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="no kernel differentiates"):
         tfa.flash_attention(q, q, q)
     with pytest.raises(NotImplementedError, match="no kernel differentiates"):
         attention(q, q, q, compute_dtype=torch.float32)
+
+
+# The kernel's error and the plain twin's, each against a float64
+# evaluation of the same function, with q scaled x1, x4 and x8 (a peaky
+# softmax: base-2 logits up to ~±40 at x8): the 3xTF32 kernel must stay
+# within 4x the twin's error, and within F32_REL_TOL of the scale at x1.
+# At the CLIP tower's shape and at the ragged one of chip_smoke.py.
+F64_SHAPES = [(1, 257, 257, 16, 80, None), (2, 200, 257, 16, 80, (257, 130))]
+
+
+def _f64_reference(q, k, v, k_lens):
+    """o = softmax_2(q' kᵀ) v in float64, q' = q·fp32(scale·log2 e)."""
+    d = q.shape[-1]
+    qscale = float(torch.tensor(d ** -0.5 * 1.4426950408889634,
+                                dtype=torch.float32))
+    s = torch.einsum("bqnd,bknd->bnqk", q.double() * qscale, k.double())
+    if k_lens is not None:
+        valid = (torch.arange(k.shape[1], device=q.device)[None, :]
+                 < k_lens[:, None])[:, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -torch.inf))
+    p = torch.softmax(s * torch.log(torch.tensor(2.0, dtype=torch.float64)),
+                      dim=-1)
+    return torch.einsum("bnqk,bknd->bqnd", p, v.double())
+
+
+@pytest.mark.parametrize("mult", [1.0, 4.0, 8.0])
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", F64_SHAPES)
+def test_f32_kernel_error_against_float64(cuda, no_tf32, b, lq, lk, n, d,
+                                          k_lens, mult):
+    q, k, v = _f32_qkv(cuda, b, lq, lk, n, d)
+    q = q * mult
+    kl = _klens(k_lens)
+    want = _f64_reference(q, k, v, kl)
+    kernel_err = float((tfa.flash_attention_cuda(q, k, v, kl).double()
+                        - want).abs().max())
+    twin_err = float((tfa.flash_attention_plain(q, k, v, kl).double()
+                      - want).abs().max())
+    assert kernel_err <= 4 * twin_err, (kernel_err, twin_err)
+    if mult == 1.0:
+        assert kernel_err <= F32_REL_TOL * float(want.abs().max())
+
+
+# Edge shapes of the 32-row query tiles and 64-key tiles (two 32-key
+# slices): Lq = 1, 16, 17, 33; Lk = 1, and 257 (one key in the last tile);
+# k_lens 0 (zeros), 64 and 65 (a tile boundary) and 1; D = 8 and 128.
+F32_EDGE_SHAPES = [(1, 1, 257, 2, 80, None), (1, 16, 64, 2, 80, None),
+                   (1, 17, 1, 2, 80, None), (2, 33, 257, 2, 80, (257, 1)),
+                   (3, 40, 130, 2, 64, (0, 64, 65)),
+                   (1, 33, 257, 3, 8, None),
+                   (2, 17, 257, 2, 128, (65, 257))]
+
+
+@pytest.mark.parametrize("b,lq,lk,n,d,k_lens", F32_EDGE_SHAPES)
+def test_f32_kernel_edge_shapes(cuda, no_tf32, b, lq, lk, n, d, k_lens):
+    q, k, v = _f32_qkv(cuda, b, lq, lk, n, d)
+    kl = _klens(k_lens)
+    got = tfa.flash_attention_cuda(q, k, v, kl)
+    _close(got, tfa.flash_attention_plain(q, k, v, kl), F32_REL_TOL)
+    for i, n_keys in enumerate(k_lens or ()):
+        if n_keys == 0:
+            assert bool((got[i] == 0).all())
+
+
+def test_f32_kernel_counts_one_launch_per_call(cuda):
+    qkv = torch.randn(1, 257, 3, 16, 80, generator=cuda, device="cuda")
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = tfa.launch_counts()
+    for i in range(1, 4):
+        tfa.flash_attention(q, k, v)
+        after = tfa.launch_counts()
+        assert after["f32_launches"] == before["f32_launches"] + i
+        assert {key: c for key, c in after.items() if key != "f32_launches"} \
+            == {key: c for key, c in before.items() if key != "f32_launches"}
 
 
 def test_bf16_kernel_at_the_image_cross_shape(cuda):
