@@ -72,7 +72,23 @@ Phases:
     W8A8 against the plain int8 GEMM; (c) ``cli.generate --task i2v-14B
     --image`` at full width and depth, one 832×480×17 request in 4 steps,
     launches counted; (d) ``cli.preprocess --dataset i2v`` on one
-    synthetic 832×480×81 clip.
+    synthetic 832×480×81 clip;
+13. sequence-parallel serving, the mesh's ranks as threads of this
+    process (``ThreadComm``; NCCL puts no two ranks on one card): (a) the
+    t2v-14B DiT at full width and depth, r1's shape, one forward each in
+    Ulysses sp 2 and 4, ring sp 2 and USP 2 × 2 against the one-process
+    forward, launches counted, seconds beside the one-process forward's;
+    (b) the kernels at the shapes those modes launch, against their plain
+    twins on the same inputs: the forward over Ulysses' N/sp heads and on
+    the cross-attention's query shards, and the ring's stats kernel per
+    (query shard, key shard) pair at ring sp 2's 40 heads, USP's 20 (and
+    at 4 shards), merged by ``ring_merge`` against the one-shot kernel,
+    and with an empty key shard against the plain twin pair by pair; (c) the
+    FSDP variant at sp 2 (block weights as shards gathered per block; a
+    4-block bf16 and W8A8 DiT, a 4-layer umT5-XXL) bit-equal to the
+    unsharded one; (d) ``cli.generate --dit_fsdp --t5_fsdp`` under
+    torchrun's variables for one rank, NCCL at world size 1, over 8b's
+    directory, equal to the run without the flags.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -777,8 +793,16 @@ def quantize_kernel_cases(report):
     report["quantize_cases"] = rows
 
 
+def _sp_launches(report, key):
+    """A kernel's launches in each SP mode's forward of phase 13a."""
+    modes = report.get("sp_forward", {}).get("modes", {})
+    return {f"sp {name} (phase 13a)": row["launches"].get(key, 0)
+            for name, row in modes.items()}
+
+
 def kernels_line(report):
-    cases = report["flash_cases"]
+    cases = report["flash_cases"] + report.get("sp_kernels", {}).get("fwd",
+                                                                     [])
     main = cases[0]
     entries = [{
         "name": "flash_fwd",
@@ -792,7 +816,8 @@ def kernels_line(report):
             "w8a8 + adapters (phase 11c)": report.get(
                 "lora_w8a8_launches", {}).get("launches", 0),
             "i2v request (phase 12c)": report.get("i2v_launches", {}).get(
-                "launches", 0)},
+                "launches", 0),
+            **_sp_launches(report, "launches")},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"],
         "before_redesign_ms": main["before_redesign_ms"],
@@ -846,6 +871,9 @@ def kernels_line(report):
                     "int8_gemm_launches", 0),
                 "i2v w8a8 DiT (phase 12b)": report.get("i2v_dit", {}).get(
                     "w8a8", {}).get("launches", {}).get(
+                        "int8_gemm_launches", 0),
+                "w8a8 fsdp sp2 (phase 13c)": report.get("sp_fsdp", {}).get(
+                    "w8a8", {}).get("launches", {}).get(
                         "int8_gemm_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in int8),
             "ms": main8["ms"],
@@ -873,6 +901,9 @@ def kernels_line(report):
                     "quantize_launches", 0),
                 "i2v w8a8 DiT (phase 12b)": report.get("i2v_dit", {}).get(
                     "w8a8", {}).get("launches", {}).get(
+                        "quantize_launches", 0),
+                "w8a8 fsdp sp2 (phase 13c)": report.get("sp_fsdp", {}).get(
+                    "w8a8", {}).get("launches", {}).get(
                         "quantize_launches", 0)},
             "max_abs_err": max(c["max_abs_err"] for c in quant),
             "ms": mainq["ms"], "plain_ms": mainq["plain_ms"],
@@ -893,6 +924,8 @@ def kernels_line(report):
 
     stats = [c for c in train if "kernel" in c]
     bwd = [c for c in train if "kernel" not in c]
+    if "sp_kernels" in report:  # 13b: the ring groups of the SP modes
+        stats = stats + report["sp_kernels"]["stats"]
     # self-attention at 32,760 tokens: the 1.3B row (N = 12) when phase 2
     # ran, else the 14B one (N = 40)
     s, bmain = stats[0], bwd[0]
@@ -902,7 +935,8 @@ def kernels_line(report):
         "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "moviigen_tpu/ops/flash_attention.py:105",
         "launches": counts.get("stats_launches", 0),
-        "launches_by_path": by_path("stats_launches"),
+        "launches_by_path": {**by_path("stats_launches"),
+                             **_sp_launches(report, "stats_launches")},
         "max_abs_err": max(c["max_abs_err"] for c in stats),
         "ms": s["ms"], "before_redesign_ms": s["before_redesign_ms"],
         "plain_ms": s["plain_ms"],
@@ -1633,26 +1667,10 @@ def phase_quant_serving(report):
     phase_ckpt_dir_serving(report)
 
 
-def phase_ckpt_dir_serving(report):
-    """(b) ``cli.generate --ckpt_dir --quant int8`` as a user runs it,
-    twice, over a random checkpoint directory in the reference layout
-    that the port's exporters write first: the first start quantizes and
-    writes the caches, the second must start from them alone."""
-    import pathlib
-    import shutil
-
-    import torch
-
+def _cut_task():
+    """Register ``CKPT_TASK`` (t2v-14B at full width, its depth cut) with
+    the port's configs, in this process; returns its config."""
     from moviigen_tpu_torch import configs
-    from moviigen_tpu_torch.cli import generate
-    from moviigen_tpu_torch.models import t5 as t5m
-    from moviigen_tpu_torch.models import vae as vaem
-    from moviigen_tpu_torch.models import vae_convert, wan_convert
-    from moviigen_tpu_torch.models.wan_model import WanModel
-    from moviigen_tpu_torch.ops import flash_attention as fa
-    from moviigen_tpu_torch.ops import int8_gemm as ig
-    from moviigen_tpu_torch.ops.quantization import quantize_linear
-    from moviigen_tpu_torch.pipelines import text2video as t2v
 
     base = configs.WAN_CONFIGS["t2v-14B"]
     cfg = base.replace(
@@ -1661,11 +1679,27 @@ def phase_ckpt_dir_serving(report):
         t5=base.t5.replace(num_layers=CKPT_T5_LAYERS))
     configs.WAN_CONFIGS[CKPT_TASK] = cfg
     configs.SUPPORTED_SIZES[CKPT_TASK] = configs.SUPPORTED_SIZES["t2v-14B"]
-    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
+    return cfg
+
+
+def _export_ckpt_dir(root, phase):
+    """A random ``CKPT_TASK`` checkpoint directory in the reference layout
+    under ``root``, written by the port's exporters (the DiT in fp32, the
+    umT5 in bf16, the VAE). Returns (directory, its config, the first
+    block's fc1 weight in bf16, GiB, seconds)."""
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.models import t5 as t5m
+    from moviigen_tpu_torch.models import vae as vaem
+    from moviigen_tpu_torch.models import vae_convert, wan_convert
+    from moviigen_tpu_torch.models.wan_model import WanModel
+
+    cfg = _cut_task()
     shutil.rmtree(root, ignore_errors=True)
     ckpt = root / "ckpt"
     ckpt.mkdir(parents=True)
-
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     t0 = time.perf_counter()
     dit = WanModel(cfg.model, dtype=torch.float32, device=DEVICE)
@@ -1673,8 +1707,7 @@ def phase_ckpt_dir_serving(report):
     wan_convert.export_wan_safetensors(str(ckpt / wan_convert.EXPORT_NAME),
                                        dit)
     fc1 = dit.blocks[0].ffn_fc1.weight.detach().to(torch.bfloat16)
-    want_q, want_s = quantize_linear(fc1)
-    del dit, fc1
+    del dit
     t5 = t5m.T5Encoder(cfg.t5, dtype=torch.bfloat16, device=DEVICE)
     t5.init_weights(gen)
     torch.save(t5m.t5_state_dict(t5), ckpt / cfg.t5_checkpoint)
@@ -1686,8 +1719,32 @@ def phase_ckpt_dir_serving(report):
     torch.cuda.empty_cache()
     export_s = time.perf_counter() - t0
     ckpt_gib = sum(f.stat().st_size for f in ckpt.iterdir()) / 2**30
-    log(f"phase 8b: exported a random {CKPT_TASK} checkpoint directory "
+    log(f"phase {phase}: exported a random {CKPT_TASK} checkpoint directory "
         f"({ckpt_gib:.2f} GiB) in {export_s:.1f} s")
+    return ckpt, cfg, fc1, ckpt_gib, export_s
+
+
+def phase_ckpt_dir_serving(report):
+    """(b) ``cli.generate --ckpt_dir --quant int8`` as a user runs it,
+    twice, over a random checkpoint directory in the reference layout
+    that the port's exporters write first: the first start quantizes and
+    writes the caches, the second must start from them alone. The
+    directory stays for phase 13d when that phase runs too."""
+    import pathlib
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import generate
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.quantization import quantize_linear
+    from moviigen_tpu_torch.pipelines import text2video as t2v
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
+    ckpt, cfg, fc1, ckpt_gib, export_s = _export_ckpt_dir(root, "8b")
+    want_q, want_s = quantize_linear(fc1)
+    del fc1
 
     caches = [ckpt / f"moviigen_quant_{tag}_int8.safetensors"
               for tag in ("dit", "t5")]
@@ -1748,7 +1805,10 @@ def phase_ckpt_dir_serving(report):
                               starts=rows)
     log("phase 8b: " + json.dumps(report["ckpt_dir"]))
     del pipe
-    shutil.rmtree(root)
+    if report.get("keep_ckpt_dir"):
+        report["ckpt_dir_path"] = ckpt
+    else:
+        shutil.rmtree(root)
     torch.cuda.empty_cache()
 
 
@@ -2876,16 +2936,552 @@ def phase_i2v(report):
             f"before gc.collect(), {after:.2f} after")
 
 
+
+# Phase 13: sequence-parallel serving on the one card, the mesh's ranks as
+# threads of this process (``parallel.comm.ThreadComm``: NCCL puts no two
+# ranks on one GPU). (name, sp_mode, data, ring, seq), at r1's shape.
+SP_CASES = [
+    ("ulysses_sp2", "ulysses", 1, 1, 2),
+    ("ulysses_sp4", "ulysses", 1, 1, 4),
+    ("ring_sp2", "ring", 1, 1, 2),
+    ("usp_r2_u2", "usp", 1, 2, 2),
+]
+# The SP forward against the one-process forward, bf16 compute, 40 blocks.
+# Ulysses runs each head's attention as the same kernel work item over the
+# same keys, and the linears' rows are independent of each other: it must
+# give the one-process bits exactly. The ring rounds each key shard's
+# partial to bf16 (the kernel's output) before the fp32 merge, a rounding
+# the one-shot kernel does once: it reads 2.25e-3 of the prediction's
+# norm, the same bits in every call. The bound for ring and USP is twice
+# that. The controls (``SP_CONTROLS``) show what it can see: a fault of
+# the SP code runs in every block, and one head dropped in every block
+# must read above the bound; one head dropped in block 0 alone reads
+# about as much as the ring's rounding, so a fault that small is left to
+# 13b's pair-by-pair checks of the ring at the modes' shapes.
+SP_RING_REL_TOL = 5e-3
+# (name, blocks, must exceed the bound): the one-process forward with
+# head 0 of those blocks' self-attention dropped (its input columns of
+# the o-projection zeroed), against the intact forward
+SP_CONTROLS = (("head 0 of block 0 dropped", (0,), False),
+               ("head 0 of every block dropped", None, True))
+# the modes whose forward 13a also profiles (the one-process one too)
+SP_PROFILED = ("ulysses_sp4", "usp_r2_u2")
+# 13b: r1's attention (B = 2, 7,800 tokens, 40 heads) cut as the modes of
+# SP_CASES cut it, plus the ring at 4 key shards, which no 13a mode runs.
+SP_SHAPE = (2, 7800, HEADS)
+SP_RING_EXTRA = ((HEADS, 4),)
+# 13c: the FSDP variant at full width with the depth cut (the full-depth
+# DiT is 13a's); 13d: world size 1 over NCCL on 8b's directory.
+SP_FSDP_LAYERS, SP_FSDP_T5_LAYERS = 4, 4
+
+
+def _sp_expected(mode, ring, sp, layers):
+    """Launches of one SP forward over all ranks: per block and rank one
+    cross-attention forward (its token shard against the 512 text keys)
+    and, for the self-attention, one forward over N/sp heads (ulysses) or
+    one stats launch per key shard that comes round the ring (ring: sp;
+    usp: R)."""
+    stats = {"ulysses": 0, "ring": sp, "usp": ring}[mode]
+    return dict(launches=layers * sp * (1 + (mode == "ulysses")),
+                stats_launches=layers * sp * stats)
+
+
+def phase_sp_forward(report):
+    """(a) The t2v-14B DiT at full width and depth, random weights with a
+    live head, at r1's shape (7,800 tokens, B = 2): the one-process
+    forward, then each SP mode of ``SP_CASES`` over thread ranks (one
+    untimed forward, then one timed with its launches counted); then the
+    device's busy time and idle share under torch.profiler for the
+    one-process forward and ``SP_PROFILED`` (do the thread ranks keep the
+    card busy, or does the host hold it back?)."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+    from moviigen_tpu_torch.parallel.ulysses import sequence_parallel_forward
+
+    cfg = WAN_CONFIGS["t2v-14B"].model
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    t0 = time.perf_counter()
+    model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE)
+    model.init_weights(gen)
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.02, generator=gen)  # live head
+    x, t, ctx, rope = _dit_inputs(cfg, gen)
+    torch.cuda.synchronize()
+    log(f"phase 13a: t2v-14B DiT built in {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    with torch.no_grad():
+        model(x, t, ctx, rope, seq_len=7800)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = model(x, t, ctx, rope, seq_len=7800).float()
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        log(f"phase 13a: one-process forward {one_s:.3f} s")
+        for name, mode, data, ring, seq in SP_CASES:
+            def fwd(comm):
+                return sequence_parallel_forward(
+                    model, x, t, ctx, rope, comm, seq_len=7800,
+                    sp_mode=mode)
+
+            run_ranks(fwd, thread_mesh(data=data, ring=ring, seq=seq))
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = run_ranks(fwd, thread_mesh(data=data, ring=ring,
+                                              seq=seq))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = fa.launch_counts()
+            sp = ring * seq
+            expected = dict.fromkeys(counts, 0)
+            expected.update(_sp_expected(mode, ring, sp, cfg.num_layers))
+            got = outs[0].float()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"sp {name}: non-finite prediction")
+            if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                raise RuntimeError(f"sp {name}: the ranks disagree")
+            rel = float((got - want).norm() / want.norm())
+            exact = mode == "ulysses"
+            rows[name] = dict(
+                sp_mode=mode, data=data, ring=ring, seq=seq, s=secs,
+                one_process_s=one_s, rel_norm_err=rel,
+                rel_max_err=float((got - want).abs().max()
+                                  / want.abs().max()),
+                bound="bit-equal" if exact else SP_RING_REL_TOL,
+                launches=counts,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            log(f"phase 13a: {name} " + json.dumps(rows[name]))
+            if exact and not torch.equal(got, want):
+                raise RuntimeError(f"sp {name}: not bit-equal to the "
+                                   f"one-process forward ({rel:.3e})")
+            if rel > SP_RING_REL_TOL:
+                raise RuntimeError(f"sp {name}: relative error {rel:.3e} > "
+                                   f"{SP_RING_REL_TOL}")
+            if counts != expected:
+                raise RuntimeError(f"sp {name}: launches {counts}, "
+                                   f"expected {expected}")
+            del outs, got
+        controls = {}
+        for what, blocks, must in SP_CONTROLS:
+            ws = [model.blocks[i].self_attn.o.weight[:, :cfg.head_dim]
+                  for i in (blocks or range(cfg.num_layers))]
+            kept = [w.clone() for w in ws]
+            for w in ws:
+                w.zero_()
+            controls[what] = float((model(x, t, ctx, rope, seq_len=7800)
+                                    .float() - want).norm() / want.norm())
+            for w, k in zip(ws, kept):
+                w.copy_(k)
+            del ws, kept
+            log(f"phase 13a: control, {what}: {controls[what]:.3e} of the "
+                f"norm (bound {SP_RING_REL_TOL})")
+            if must and controls[what] <= SP_RING_REL_TOL:
+                raise RuntimeError(f"sp control, {what}: "
+                                   f"{controls[what]:.3e} is within the "
+                                   f"ring's bound {SP_RING_REL_TOL}")
+        profiles = {"one_process": profile(
+            lambda: model(x, t, ctx, rope, seq_len=7800), "one_process",
+            "13a")}
+        for name, mode, data, ring, seq in SP_CASES:
+            if name in SP_PROFILED:
+                mesh = dict(data=data, ring=ring, seq=seq)
+                profiles[name] = profile(
+                    lambda: run_ranks(lambda c: sequence_parallel_forward(
+                        model, x, t, ctx, rope, c, seq_len=7800,
+                        sp_mode=mode), thread_mesh(**mesh)), name, "13a")
+    report["sp_forward"] = dict(
+        one_process_s=one_s, modes=rows, pred_norm=float(want.norm()),
+        controls_rel_norm_err=controls,
+        profiles={k: {f: v[f] for f in ("wall_ms", "wall_ms_unprofiled",
+                                         "device_ms", "idle_share")}
+                  for k, v in profiles.items()})
+    del model, want
+    torch.cuda.empty_cache()
+
+
+def _sp_kernel_shapes():
+    """The attention the modes of ``SP_CASES`` launch at r1's shape:
+    Ulysses' forward over N/sp heads and all L tokens (the head counts),
+    the ring groups of ring and USP as (heads, key shards) with
+    ``SP_RING_EXTRA``, and the cross-attention's query shards (L/sp rows
+    against the 512 text keys)."""
+    _, l, n = SP_SHAPE
+    heads, rings, rows = set(), set(SP_RING_EXTRA), set()
+    for _, mode, _, ring, seq in SP_CASES:
+        rows.add(l // (ring * seq))
+        if mode == "ulysses":
+            heads.add(n // seq)
+        elif mode == "ring":
+            rings.add((n, seq))
+        else:
+            rings.add((n // seq, ring))
+    return sorted(heads), sorted(rings), sorted(rows)
+
+
+def _sp_fwd_case(name, q, k, v):
+    """The forward kernel against its plain twin on the same inputs, with
+    its time, the plain twin's, SDPA's and the bound."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    b, lq, n, _ = q.shape
+    lk = k.shape[1]
+    got = fa.flash_attention_cuda(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    max_abs, rel = _check(name, "out", got, want, FLASH_REL_TOL)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound_ms, bound_by = flash_bound(b, lq, [lk] * b, n=n)
+    return dict(case=name, B=b, Lq=lq, Lk=lk, N=n, max_abs_err=max_abs,
+                rel_err=rel,
+                ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                 iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.nn.functional
+                                   .scaled_dot_product_attention(qt, kt,
+                                                                 vt)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                before_redesign_ms=None)
+
+
+def _sp_ring_case(n, shards, gen):
+    """The ring of ``shards`` key shards at ``n`` heads: for each query
+    shard the stats kernel on each key shard (its local ``k_lens``), merged
+    by ``ring.ring_merge``; dense against the one-shot kernel, then with a
+    ``k_lens`` that empties batch entry 1's last key shard against the
+    plain twin, and each of that run's pairs against the plain twin's
+    stats on the same inputs (an empty pair exactly: m = -1e30, l = 0).
+    One pair's stats kernel, merge, plain twin and SDPA timed."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import ring
+
+    b, l, _ = SP_SHAPE
+    d = HEAD_DIM
+    shard = l // shards
+    name = f"s_ring_B{b}_L{shard}x{shards}_N{n}"
+    q, k, v = (torch.randn(b, l, n, d, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16) for _ in range(3))
+    cut = [[c.contiguous() for c in x.split(shard, dim=1)]
+           for x in (q, k, v)]
+
+    def ring_out(k_lens, backend="auto"):
+        outs, pairs = [], {}
+        for i in range(shards):
+            acc = (torch.zeros((b, shard, n, d), dtype=torch.float32,
+                               device=DEVICE),
+                   torch.full((b, shard, n), -1e30, device=DEVICE),
+                   torch.zeros((b, shard, n), device=DEVICE))
+            for j in range(shards):
+                part = fa.flash_attention_with_stats(
+                    cut[0][i], cut[1][j], cut[2][j],
+                    ring._local_klens(k_lens, j, shard), backend=backend)
+                pairs[i, j] = part
+                acc = ring.ring_merge(*acc, *part)
+            outs.append(acc[0].to(torch.bfloat16))
+        return torch.cat(outs, dim=1), pairs
+
+    errs = []
+    got, _ = ring_out(None)
+    errs.append(_check(name, "ring vs one-shot kernel", got,
+                       fa.flash_attention_cuda(q, k, v), FLASH_REL_TOL))
+    k_lens = torch.tensor([l, (shards - 1) * shard], dtype=torch.int32,
+                          device=DEVICE)
+    got, pairs = ring_out(k_lens)
+    errs.append(_check(name, "ring with an empty shard vs plain", got,
+                       fa.flash_attention_plain(q, k, v, k_lens),
+                       FLASH_REL_TOL))
+    _, plain = ring_out(k_lens, backend="plain")
+    for (i, j), (o, m, l_) in pairs.items():
+        wo, wm, wl = plain[i, j]
+        pair = f"{name} pair ({i}, {j})"
+        errs.append(_check(pair, "out", o, wo, FLASH_REL_TOL))
+        empty = wm <= -0.99e30 / fa.LOG2E
+        if not torch.equal(empty, m <= -0.99e30 / fa.LOG2E) \
+                or bool(l_[empty].any()) or bool(o[empty].any()):
+            raise RuntimeError(f"{pair}: an empty key shard's rows are not "
+                               "m = -1e30, l = 0, out = 0")
+        errs.append(_check(pair, "m", m[~empty], wm[~empty], FLASH_REL_TOL))
+        errs.append(_check(pair, "l", l_, wl, FLASH_REL_TOL))
+    if not bool((plain[0, shards - 1][1][1] <= -0.99e30 / fa.LOG2E).all()):
+        raise RuntimeError(f"{name}: batch entry 1's last key shard is not "
+                           "empty")
+    q0, k0, v0 = cut[0][0], cut[1][1], cut[2][1]
+    part = fa.flash_attention_with_stats(q0, k0, v0)
+    acc = ring.ring_merge(part[0].float(), part[1], part[2], *part)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
+    bound_ms, bound_by = train_bounds(b, shard, shard, [shard] * b,
+                                      n=n)[0]
+    row = dict(
+        case=name, kernel="stats", B=b, Lq=shard, Lk=shard, N=n,
+        shards=shards, max_abs_err=max(e[0] for e in errs),
+        rel_err=max(e[1] for e in errs), ring_rel_err=errs[0][1],
+        empty_shard_rel_err=errs[1][1],
+        ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
+        merge_ms=cuda_ms(lambda: ring.ring_merge(*acc, *part)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(q0, k0, v0),
+                         iters=5, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qt, kt, vt)),
+        bound_ms=bound_ms, bound_by=bound_by, before_redesign_ms=None)
+    del q, k, v, cut, got, pairs, plain, part, acc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sp_ring_pieces(report):
+    """(b) The kernels at the shapes the SP modes of 13a launch, each
+    against its plain twin on the same inputs (``_sp_kernel_shapes``):
+    the forward kernel over Ulysses' N/sp heads and all 7,800 tokens and
+    on the cross-attention's query shards; the ring of stats launches and
+    merges for each ring group of ring and USP (and at 4 key shards),
+    dense against the one-shot kernel and with an empty key shard against
+    the plain twin, pair by pair (``_sp_ring_case``). Launches here are
+    comparisons, not the path's."""
+    import torch
+
+    b, l, n = SP_SHAPE
+    heads, rings, rows = _sp_kernel_shapes()
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    fwd, stats = [], []
+    with torch.no_grad():
+        for nu in heads:
+            q, k, v = (torch.randn(b, l, nu, HEAD_DIM, generator=gen,
+                                   device=DEVICE, dtype=torch.bfloat16)
+                       for _ in range(3))
+            fwd.append(_sp_fwd_case(f"u_self_B{b}_L{l}_N{nu}", q, k, v))
+            log("phase 13b: " + json.dumps(fwd[-1]))
+        for lq in rows:
+            q = torch.randn(b, lq, n, HEAD_DIM, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn(b, 512, n, HEAD_DIM, generator=gen,
+                                device=DEVICE, dtype=torch.bfloat16)
+                    for _ in range(2))
+            fwd.append(_sp_fwd_case(f"x_cross_B{b}_Lq{lq}_Lk512", q, k, v))
+            log("phase 13b: " + json.dumps(fwd[-1]))
+        del q, k, v
+        for nr, shards in rings:
+            stats.append(_sp_ring_case(nr, shards, gen))
+            log("phase 13b: " + json.dumps(stats[-1]))
+    report["sp_kernels"] = dict(fwd=fwd, stats=stats)
+    torch.cuda.empty_cache()
+
+
+def phase_sp_fsdp(report):
+    """(c) The FSDP variant under thread ranks at sp = 2: the t2v-14B DiT
+    at full width (``SP_FSDP_LAYERS`` blocks), bf16 and W8A8, its block
+    weights as shards gathered per block, against the unsharded Ulysses
+    forward; umT5-XXL at full width (``SP_FSDP_T5_LAYERS`` layers) with
+    its gathers against the unsharded encoder. Equal bit for bit: the
+    gathered weights are the same bytes."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.t5 import T5Encoder
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.parallel import sharding
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+    from moviigen_tpu_torch.parallel.ulysses import sequence_parallel_forward
+
+    config = WAN_CONFIGS["t2v-14B"]
+    cfg = config.model.replace(num_layers=SP_FSDP_LAYERS)
+    rows = {}
+    with torch.no_grad():
+        for quant in (None, "w8a8"):
+            gen = torch.Generator(device=DEVICE).manual_seed(15)
+            model = WanModel(cfg, dtype=torch.bfloat16, device=DEVICE,
+                             quant=quant).init_weights(gen)
+            model.head.weight.normal_(0.0, 0.02, generator=gen)
+            x, t, ctx, rope = _dit_inputs(cfg, gen)
+            out = {}
+            for fsdp in (False, True):
+                def fwd(comm):
+                    m = model
+                    if fsdp:
+                        m = sharding.shard_params(
+                            model, sharding.dit_param_specs(model), comm,
+                            "seq")
+                    return sequence_parallel_forward(
+                        m, x, t, ctx, rope, comm, seq_len=7800,
+                        fsdp_params=fsdp)
+
+                fa.reset_launch_counts()
+                ig.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[fsdp] = run_ranks(fwd, thread_mesh(seq=2))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts = {**fa.launch_counts(), **ig.launch_counts()}
+            tag = quant or "bf16"
+            w8a8 = quant == "w8a8"
+            expected = dict.fromkeys(counts, 0)
+            expected.update(
+                launches=2 * 2 * SP_FSDP_LAYERS,
+                int8_gemm_launches=2 * 10 * SP_FSDP_LAYERS * w8a8,
+                quantize_launches=2 * 7 * SP_FSDP_LAYERS * w8a8)
+            equal = all(torch.equal(o, out[False][0])
+                        for o in out[True] + out[False])
+            rows[tag] = dict(equal=equal, fsdp_s=secs, launches=counts,
+                             pred_norm=float(out[False][0].float().norm()))
+            log(f"phase 13c: dit {tag} " + json.dumps(rows[tag]))
+            if not equal:
+                raise RuntimeError(f"fsdp {tag}: the sharded forward is not "
+                                   "the unsharded one")
+            if counts != expected:
+                raise RuntimeError(f"fsdp {tag}: launches {counts}, "
+                                   f"expected {expected}")
+            del model, out
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEVICE).manual_seed(16)
+        t5 = T5Encoder(config.t5.replace(num_layers=SP_FSDP_T5_LAYERS),
+                       dtype=torch.bfloat16, device=DEVICE)
+        t5.init_weights(gen)
+        ids = torch.randint(0, config.t5.vocab_size, (2, 512),
+                            generator=gen, device=DEVICE)
+        mask = torch.ones_like(ids)
+        mask[1, 40:] = 0
+        want = t5(ids, mask)
+
+        def enc(comm):
+            m = sharding.shard_params(t5, sharding.t5_param_specs(t5), comm,
+                                      "seq")
+            return m(ids, mask,
+                     param_gather_fn=sharding.make_param_gather(comm, "seq"))
+
+        outs = run_ranks(enc, thread_mesh(seq=2))
+        equal = all(torch.equal(o, want) for o in outs)
+        rows["t5"] = dict(equal=equal, layers=SP_FSDP_T5_LAYERS)
+        log("phase 13c: t5 " + json.dumps(rows["t5"]))
+        if not equal:
+            raise RuntimeError("fsdp t5: the gathered encoder is not the "
+                               "unsharded one")
+        del t5, outs, want
+    report["sp_fsdp"] = rows
+    torch.cuda.empty_cache()
+
+
+def phase_sp_cli(report):
+    """(d) ``cli.generate`` in this process under torchrun's variables for
+    one rank: NCCL at world size 1, over 8b's random ``CKPT_TASK``
+    directory, without and then with ``--dit_fsdp --t5_fsdp`` (a (1, 1)
+    mesh: both models as shards, gathered per block, the DiT through the
+    SP forward); the two videos equal. The CLI's own log (the mesh, the
+    request's timings) is shown at INFO. The process group is taken down
+    after."""
+    import logging
+    import pathlib
+    import shutil
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from moviigen_tpu_torch.cli import generate
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import distributed
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
+    ckpt = report.get("ckpt_dir_path")
+    if ckpt is None:
+        ckpt = _export_ckpt_dir(root, "13d")[0]
+    _cut_task()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    videos = []
+    keep = generate.cache_video
+
+    def capture(video, save_file, **kwargs):
+        videos.append(video)
+        return keep(video, save_file=save_file, **kwargs)
+
+    generate.cache_video = capture
+    rows = []
+    level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        if not distributed.maybe_initialize_distributed(strict=True):
+            raise RuntimeError("cli: torch.distributed did not start")
+        init_s = time.perf_counter() - t0
+        world, backend = dist.get_world_size(), dist.get_backend()
+        log(f"phase 13d: process group up in {init_s:.2f} s: {backend}, "
+            f"world size {world}")
+        argv = ["--task", CKPT_TASK, "--device", DEVICE, "--size",
+                "832*480", "--frame_num", "5", "--sample_steps", "2",
+                "--base_seed", "42", "--prompt", PROMPT, "--ckpt_dir",
+                str(ckpt)]
+        for flags in ([], ["--dit_fsdp", "--t5_fsdp"]):
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate.main(argv + flags + [
+                "--save_file", str(root / f"sp_cli{len(flags)}.mp4")])
+            torch.cuda.synchronize()
+            rows.append(dict(flags=flags, total_s=time.perf_counter() - t0,
+                             launches=fa.launch_counts(), saved=out))
+            log("phase 13d: " + json.dumps(rows[-1]))
+            if out is None or not os.path.getsize(out):
+                raise RuntimeError(f"cli {flags}: no video written")
+            # 2 steps x 1 batched forward x 2 attention sites x the blocks
+            if rows[-1]["launches"]["launches"] != 2 * 2 * CKPT_DIT_LAYERS:
+                raise RuntimeError(f"cli {flags}: launches "
+                                   f"{rows[-1]['launches']}")
+    finally:
+        logging.getLogger().setLevel(level)
+        generate.cache_video = keep
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    equal = bool(np.array_equal(videos[0], videos[1]))
+    _serve_checks("sp cli", videos[0], 5)
+    report["sp_cli"] = dict(backend=backend, world_size=world,
+                            init_s=init_s, equal=equal, runs=rows)
+    log("phase 13d: " + json.dumps(dict(backend=backend, world_size=world,
+                                        init_s=init_s, equal=equal)))
+    if backend != "nccl" or world != 1:
+        raise RuntimeError(f"cli: {backend} at world size {world}, not NCCL "
+                           "at 1")
+    if not equal:
+        raise RuntimeError("cli: --dit_fsdp --t5_fsdp changed the video")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_sp(report):
+    t0 = time.perf_counter()
+    for sub in (phase_sp_forward, phase_sp_ring_pieces, phase_sp_fsdp,
+                phase_sp_cli):
+        sub(report)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
           9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora,
-          12: phase_i2v}
+          12: phase_i2v, 13: phase_sp}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13",
                     help="comma-separated phases to run (default: all "
                          "but the profiles, 5, 7 and 9)")
     args = ap.parse_args(argv)
@@ -2899,7 +3495,7 @@ def main(argv=None) -> int:
         return 2
     import moviigen_tpu_torch  # noqa: F401  (fails outside the repo)
 
-    report = {}
+    report = {"keep_ckpt_dir": 13 in phases}
     t_all = time.perf_counter()
     phase_setup(report)
     for p in phases:

@@ -1,15 +1,27 @@
 """Text→video and image→video generation CLI of the PyTorch port.
 
 Counterpart of ``moviigen_tpu/cli/generate.py`` for the t2v, t2i and i2v
-tasks, on one device (``--device``, default ``cuda``). Flags of later
-slices of the port are accepted by the parser and refused with an error
-naming the slice that brings them.
+tasks, on one device (``--device``, default ``cuda``) or, under
+``torchrun``, on one card per rank. Flags of later slices of the port are
+accepted by the parser and refused with an error naming the slice that
+brings them.
 
 Examples:
     python -m moviigen_tpu_torch.cli.generate --task t2v-14B \\
         --size 832*480 --frame_num 17 --sample_steps 4 --quant w8a8
     python -m moviigen_tpu_torch.cli.generate --task i2v-14B \\
         --size 832*480 --image first_frame.png
+    torchrun --nproc_per_node 4 -m moviigen_tpu_torch.cli.generate \\
+        --task t2v-14B --size 1280*720 --ulysses_size 4 --dit_fsdp --t5_fsdp
+
+Sequence parallelism follows the JAX CLI's rules (``generate.py:144-183``):
+with ``--ulysses_size U``, ``--ring_size R``, ``--dit_fsdp`` or
+``--t5_fsdp`` the ranks form a mesh, sp = U·R must divide the world size,
+the ``data`` axis (the CFG pair) is ``min(world // sp, 2)``, and the mode
+is usp (U > 1 and R > 1), ring (R > 1) or ulysses. Under a mesh both the
+umT5 and the DiT hold their block weights as shards gathered per block,
+as the JAX pipeline shards both whenever it has a mesh. Rank 0 writes the
+video; ``--device cpu`` runs the ranks over gloo.
 
 ``--image`` (i2v, required there) is read as the JAX CLI reads it: RGB,
 resized to the request's size, scaled to [-1, 1].
@@ -27,6 +39,7 @@ from __future__ import annotations
 import argparse
 import logging
 from datetime import datetime
+from typing import Optional
 
 import numpy as np
 
@@ -47,10 +60,6 @@ EXAMPLE_PROMPT = {
 
 # flag → (value that means "not used", slice of the port that brings it)
 LATER_SLICE_FLAGS = {
-    "ulysses_size": (1, "the multi-GPU sequence-parallel slice"),
-    "ring_size": (1, "the multi-GPU sequence-parallel slice"),
-    "dit_fsdp": (False, "the multi-GPU sequence-parallel slice"),
-    "t5_fsdp": (False, "the multi-GPU sequence-parallel slice"),
     "use_prompt_extend": (False, "the apps-and-utilities slice"),
 }
 
@@ -84,6 +93,8 @@ def _validate_args(args):
         args.prompt = EXAMPLE_PROMPT[args.task]
     if "i2v" in args.task and args.image is None:
         raise ValueError("--image is required for i2v tasks")
+    if args.ulysses_size < 1 or args.ring_size < 1:
+        raise ValueError("--ulysses_size and --ring_size must be >= 1")
 
 
 def load_image(path: str, size) -> np.ndarray:
@@ -110,10 +121,14 @@ def _parse_args(argv=None):
     parser.add_argument("--ckpt_dir", type=str, default=None,
                         help="checkpoint directory in the reference layout "
                              "(default: random weights)")
-    parser.add_argument("--ulysses_size", type=int, default=1)
-    parser.add_argument("--ring_size", type=int, default=1)
-    parser.add_argument("--dit_fsdp", action="store_true", default=False)
-    parser.add_argument("--t5_fsdp", action="store_true", default=False)
+    parser.add_argument("--ulysses_size", type=int, default=1,
+                        help="sequence-parallel (head all-to-all) degree")
+    parser.add_argument("--ring_size", type=int, default=1,
+                        help="ring-attention degree")
+    parser.add_argument("--dit_fsdp", action="store_true", default=False,
+                        help="shard DiT params across the mesh")
+    parser.add_argument("--t5_fsdp", action="store_true", default=False,
+                        help="shard T5 params across the mesh")
     parser.add_argument("--t5_cpu", action="store_true", default=False,
                         help="compatibility flag (no-op: the T5 stays on "
                              "the card)")
@@ -141,18 +156,87 @@ def _parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def generate(args) -> str:
-    from ..pipelines.image2video import WanI2V
-    from ..pipelines.text2video import WanT2V
+def build_mesh(args):
+    """The JAX CLI's mesh rules (generate.py:144-183) over the ranks of
+    the process group (or over this process alone): (mesh or None,
+    sp_mode). Ranks past the mesh get a None mesh and sit out."""
+    from ..parallel import distributed
+    from ..parallel.comm import thread_mesh
+    from ..parallel.mesh import make_pod_mesh
+
+    u, r = args.ulysses_size, args.ring_size
+    sp_mode = "usp" if u > 1 and r > 1 else "ring" if r > 1 else "ulysses"
+    sp = u * r
+    if not (sp > 1 or args.dit_fsdp or args.t5_fsdp):
+        return None, sp_mode
+    dist_up = distributed.is_initialized()
+    world = 1
+    if dist_up:
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+    if world % sp != 0:
+        raise ValueError(f"sequence-parallel degree {sp} must divide the "
+                         f"world size {world} (launch the ranks with "
+                         "torchrun)")
+    # the inference batch is the CFG pair, so the data axis is at most 2;
+    # ranks beyond 2·sp sit out (the reference requires ulysses·ring ==
+    # world_size for the same reason, generate.py:216-229)
+    data = min(world // sp, 2)
+    ring, seq = (r, u) if u > 1 and r > 1 else (1, sp)
+    if not dist_up:  # one process alone: a one-rank mesh of its own
+        mesh = thread_mesh()[0]
+    else:
+        mesh = make_pod_mesh(data=data, ring=ring, seq=seq)
+    logging.info("mesh: data %d x ring %d x seq %d (%s)", data, ring, seq,
+                 sp_mode)
+    return mesh, sp_mode
+
+
+def generate(args) -> Optional[str]:
+    """Run one request; returns the path written, or None on a rank that
+    does not write (under a mesh, every rank but 0). Initializes
+    ``torch.distributed`` first when launched by ``torchrun``, and takes
+    the process group down again at the end if it brought it up."""
+    from ..parallel import distributed
 
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] %(levelname)s: %(message)s")
+    owned = not distributed.is_initialized()
+    distributed.maybe_initialize_distributed(device=args.device)
+    try:
+        return _generate(args)
+    finally:
+        if owned and distributed.is_initialized():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _generate(args) -> Optional[str]:
+    from ..parallel import distributed
+    from ..pipelines.image2video import WanI2V
+    from ..pipelines.text2video import WanT2V
+
     cfg = WAN_CONFIGS[args.task]
     size = SIZE_CONFIGS[args.size]
+    mesh, sp_mode = build_mesh(args)
+    if distributed.is_initialized():
+        import torch.distributed as dist
+
+        if mesh is None and (args.ulysses_size * args.ring_size > 1
+                             or args.dit_fsdp or args.t5_fsdp):
+            logging.info("rank %d is outside the mesh: nothing to do",
+                         dist.get_rank())
+            return None
+        writer = dist.get_rank() == 0
+    else:
+        writer = True
     logging.info("prompt: %s", args.prompt)
     pipe_kw = dict(config=cfg, residual_dtype=args.residual_dtype,
-                   device=args.device, checkpoint_dir=args.ckpt_dir,
-                   quant=args.quant)
+                   device=distributed.local_device(args.device),
+                   checkpoint_dir=args.ckpt_dir, quant=args.quant,
+                   mesh=mesh, sp_mode=sp_mode)
     gen_kw = dict(size=size, frame_num=args.frame_num,
                   shift=args.sample_shift, sample_solver=args.sample_solver,
                   sampling_steps=args.sample_steps,
@@ -165,6 +249,8 @@ def generate(args) -> str:
         pipe = WanT2V(**pipe_kw)
         video = pipe.generate(args.prompt, **gen_kw)
     logging.info("timings: %s", pipe.timings)
+    if video is None or not writer:  # rank 0 writes
+        return None
 
     if args.save_file is None:
         ts = datetime.now().strftime("%Y%m%d_%H%M%S")

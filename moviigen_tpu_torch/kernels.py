@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Mapping, Optional
@@ -32,6 +33,17 @@ KERNELS = ("flash_fwd", "flash_bwd", "int8_gemm", "quantize_act",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+# The sequence-parallel ranks of ``parallel.comm.ThreadComm`` are threads
+# of one process: loading a library and counting launches take a lock.
+_LOAD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(owner, name: str = "launches") -> None:
+    """Add one to the launch counter ``owner.<name>`` (a wrapper's
+    function attribute), under a lock."""
+    with _COUNT_LOCK:
+        setattr(owner, name, getattr(owner, name) + 1)
 
 
 def _nvcc() -> str:
@@ -101,7 +113,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = use(name)
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name) or use(name)
     return lib
 
 
@@ -111,7 +124,8 @@ def use(name: str, source: Optional[Path] = None) -> ctypes.CDLL:
     from now on. ``use(name)`` goes back to the kernel itself. The source
     must export the same entry points."""
     src = source or CSRC / f"{name}.cu"
-    build([name], {name: src})
-    lib = ctypes.CDLL(str(_target(src)))
-    _LIBS[name] = lib
+    with _LOAD_LOCK:
+        build([name], {name: src})
+        lib = ctypes.CDLL(str(_target(src)))
+        _LIBS[name] = lib
     return lib

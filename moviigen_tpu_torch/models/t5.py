@@ -154,18 +154,23 @@ class T5Encoder(nn.Module):
         return self
 
     def forward(self, ids: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                param_gather_fn=None) -> torch.Tensor:
+        """``param_gather_fn(module)`` gives the module to run in place of
+        the int8 token table and of each block, just before it runs (the
+        per-block weight gathers of ``parallel/sharding.py``)."""
+        gather = param_gather_fn or (lambda module: module)
         lq = ids.shape[1]
         buckets = torch.as_tensor(
             relative_position_buckets(lq, lq, self.cfg.num_buckets),
             dtype=torch.long, device=ids.device)
         ids = ids.clamp(0, self.cfg.vocab_size - 1)
         if isinstance(self.token_embedding, QuantEmbedding):
-            x = self.token_embedding(ids, self.norm.dtype)
+            x = gather(self.token_embedding)(ids, self.norm.dtype)
         else:
             x = self.token_embedding[ids]
         for blk in self.blocks:
-            x = blk(x, mask, buckets)
+            x = gather(blk)(x, mask, buckets)
         return t5_rms_norm(x, self.norm)
 
 

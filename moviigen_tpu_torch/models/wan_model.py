@@ -200,8 +200,10 @@ class WanAttentionBlock(nn.Module):
         b, l, d = x.shape
         return x.view(b, l, self.cfg.num_heads, d // self.cfg.num_heads)
 
-    def self_attention(self, xm, rope, k_lens, cd, backend):
-        """ref WanSelfAttention (model.py:102-156)."""
+    def self_attention(self, xm, rope, k_lens, cd, backend, attn_fn=None):
+        """ref WanSelfAttention (model.py:102-156). ``attn_fn(q, k, v,
+        k_lens)`` replaces the attention over the rotated heads (the
+        sequence-parallel modes, ``parallel/ulysses.py``)."""
         p, cfg = self.self_attn, self.cfg
         q, k, v = _dense_multi([p.q, p.k, p.v], xm, cd)
         if cfg.qk_norm:
@@ -209,8 +211,11 @@ class WanAttentionBlock(nn.Module):
             k = rms_norm(k, p.norm_k, eps=cfg.eps)
         q = rope_apply(self._heads(q), rope)
         k = rope_apply(self._heads(k), rope)
-        out = attention(q, k, self._heads(v), k_lens=k_lens, backend=backend,
-                        compute_dtype=cd)
+        if attn_fn is None:
+            out = attention(q, k, self._heads(v), k_lens=k_lens,
+                            backend=backend, compute_dtype=cd)
+        else:
+            out = attn_fn(q, k, self._heads(v), k_lens)
         b, l = out.shape[:2]
         return _dense(p.o, out.reshape(b, l, cfg.dim), cd)
 
@@ -246,9 +251,11 @@ class WanAttentionBlock(nn.Module):
         b, l = out.shape[:2]
         return _dense(p.o, out.reshape(b, l, cfg.dim), cd)
 
-    def forward(self, x, e0, context, rope, k_lens, cd, backend):
+    def forward(self, x, e0, context, rope, k_lens, cd, backend,
+                self_attn_fn=None):
         """``x`` is the residual stream; the adds run in fp32 and write
-        back ``x.dtype`` (wan_model.py:871-980)."""
+        back ``x.dtype`` (wan_model.py:871-980). ``self_attn_fn``: see
+        ``self_attention``."""
         cfg = self.cfg
         rdt = x.dtype
         e = self.modulation.float()[None] + e0          # [B, 6, D] fp32
@@ -256,7 +263,7 @@ class WanAttentionBlock(nn.Module):
 
         xm = (layer_norm(x, eps=1e-6, keep_fp32=True) * (1 + e[1])
               + e[0]).to(cd)
-        y = self.self_attention(xm, rope, k_lens, cd, backend)
+        y = self.self_attention(xm, rope, k_lens, cd, backend, self_attn_fn)
         x = (x.float() + y.float() * e[2]).to(rdt)
 
         if cfg.cross_attn_norm:
@@ -397,15 +404,29 @@ class WanModel(nn.Module):
         return _dense(self.head, xh, torch.float32)
 
     def run_blocks(self, xr, e0, ctx, rope, k_lens, compute_dtype,
-                   attn_backend, remat=False, remat_group=1):
+                   attn_backend, remat=False, remat_group=1,
+                   self_attn_fn=None, param_gather_fn=None):
         """The block stack over the residual stream (the JAX ``run_blocks``,
         wan_model.py:1113-1170). ``remat`` recomputes each block in the
         backward (``torch.utils.checkpoint``, non-reentrant), so only the
         block inputs are kept; ``remat_group=g`` nests it: every g-th
         residual is kept, and each block inside a group is checkpointed
-        again (one more forward of each block in the backward)."""
-        args = (e0, ctx, rope, k_lens, compute_dtype, attn_backend)
+        again (one more forward of each block in the backward).
+        ``self_attn_fn`` replaces each block's attention over its rotated
+        heads; ``param_gather_fn(block)`` gives the block to run in its
+        place (the sequence-parallel forward's per-block weight gathers,
+        ``parallel/sharding.py``), applied just before it runs."""
+        args = (e0, ctx, rope, k_lens, compute_dtype, attn_backend,
+                self_attn_fn)
         blocks = list(self.blocks)
+        if param_gather_fn is not None:
+            if remat:
+                raise NotImplementedError(
+                    "per-block weight gathers under remat: training under "
+                    "sequence parallelism is ROADMAP item 11b")
+            for blk in blocks:
+                xr = param_gather_fn(blk)(xr, *args)
+            return xr
         g = remat_group if remat else 1
 
         def ckpt(fn, *a):
@@ -430,6 +451,23 @@ class WanModel(nn.Module):
                 xr = ckpt(blk, xr, *args) if remat else blk(xr, *args)
         return xr
 
+    def check_inputs(self, clip_fea, y) -> None:
+        """Refuse the memory knobs (not ported) and conditioning that does
+        not fit the model type: an i2v DiT takes clip_fea and y, a t2v DiT
+        neither."""
+        cfg = self.cfg
+        knobs = [k for k in cfg.memory_knobs() if getattr(cfg, k) is not None]
+        if knobs:
+            raise NotImplementedError(
+                f"memory knobs {knobs} are not implemented in the port "
+                "(they do not change the maths; one 80 GB card does not "
+                "need them at 480p/720p)")
+        if (cfg.model_type == "i2v") != (clip_fea is not None) \
+                or (clip_fea is None) != (y is None):
+            raise ValueError(f"a {cfg.model_type} DiT takes clip_fea and y "
+                             + ("both" if cfg.model_type == "i2v"
+                                else "neither"))
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope: RopeTables, seq_len: Optional[int] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
@@ -448,17 +486,7 @@ class WanModel(nn.Module):
         [B, C_y, F, H, W]: the i2v conditioning (both or neither, i2v
         only). Returns the fp32 prediction [B, C_out, F, H, W]."""
         cfg = self.cfg
-        knobs = [k for k in cfg.memory_knobs() if getattr(cfg, k) is not None]
-        if knobs:
-            raise NotImplementedError(
-                f"memory knobs {knobs} are not implemented in the port "
-                "(they do not change the maths; one 80 GB card does not "
-                "need them at 480p/720p)")
-        if (cfg.model_type == "i2v") != (clip_fea is not None) \
-                or (clip_fea is None) != (y is None):
-            raise ValueError(f"a {cfg.model_type} DiT takes clip_fea and y "
-                             + ("both" if cfg.model_type == "i2v"
-                                else "neither"))
+        self.check_inputs(clip_fea, y)
         xt, e, e0, ctx, grid, k_lens = self.embed_inputs(
             x, t, context, seq_len=seq_len, compute_dtype=compute_dtype,
             clip_fea=clip_fea, y=y)

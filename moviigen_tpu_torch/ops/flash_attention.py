@@ -63,6 +63,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import kernels
+
 LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)
@@ -245,8 +247,6 @@ def _stream(x: torch.Tensor):
 
 
 def _kernel_fn(lib_name: str, fn_name: str, argtypes):
-    from .. import kernels
-
     fn = getattr(kernels.load(lib_name), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -300,7 +300,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.float32:
         return flash_attention_f32_cuda(q, k, v, k_lens, scale)
     (out,) = _fwd_cuda(q, k, v, k_lens, scale, stats=False)
-    flash_attention.launches += 1
+    kernels.count_launch(flash_attention, "launches")
     return out
 
 
@@ -322,7 +322,7 @@ def flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
              *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
              float(_qscale(scale, q.dtype)), _stream(q))
     _raise_on(err, "flash fp32 kernel")
-    flash_attention.f32_launches += 1
+    kernels.count_launch(flash_attention, "f32_launches")
     return out
 
 
@@ -333,7 +333,7 @@ def flash_attention_stats_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the stats forward kernel: (out, m, l) as
     ``flash_attention_stats_plain`` gives them."""
     out, m, l = _fwd_cuda(q, k, v, k_lens, scale, stats=True)
-    flash_attention.stats_launches += 1
+    kernels.count_launch(flash_attention, "stats_launches")
     return out, m, l
 
 
@@ -436,7 +436,7 @@ def flash_bwd_dkv_cuda(ops: BwdOperands):
                               device=ops.k.device)
     _bwd_launch(ops, "flash_bwd_dkv_bf16", _BWD_DKV_ARGS, (dk, dv),
                 "flash dKV kernel", 1.0 / LOG2E, splits, _ptr(scratch))
-    flash_attention.dkv_launches += 1
+    kernels.count_launch(flash_attention, "dkv_launches")
     return dk, dv
 
 
@@ -445,7 +445,7 @@ def flash_bwd_dq_cuda(ops: BwdOperands) -> torch.Tensor:
     dq = torch.empty(ops.qs.shape, dtype=ops.qs.dtype, device=ops.qs.device)
     _bwd_launch(ops, "flash_bwd_dq_bf16", _BWD_DQ_ARGS, (dq,),
                 "flash dQ kernel", ops.scale)
-    flash_attention.dq_launches += 1
+    kernels.count_launch(flash_attention, "dq_launches")
     return dq
 
 
@@ -518,13 +518,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                k_lens: Optional[torch.Tensor] = None,
-                               scale: Optional[float] = None
+                               scale: Optional[float] = None,
+                               backend: str = "auto"
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Forward + per-row softmax stats in the JAX layout: (out, m, l) with
     m, l [B, Lq, N] and m in natural-log units (flash_attention.py:
-    498-512). Not differentiable."""
-    fwd = flash_attention_stats_cuda if q.is_cuda \
+    498-512). Not differentiable. CUDA tensors run the stats kernel unless
+    ``backend="plain"``, which runs the plain twin on any device."""
+    fwd = flash_attention_stats_cuda if q.is_cuda and backend == "auto" \
         else flash_attention_stats_plain
     out, m, l = fwd(q, k, v, k_lens, scale)
     return (out, (m * (1.0 / LOG2E)).transpose(1, 2),

@@ -139,7 +139,7 @@ def int8_gemm_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 gemm kernel launch failed: CUDA error {err}")
-    int8_gemm_fused.launches += 1
+    kernels.count_launch(int8_gemm_fused)
     return out
 
 

@@ -133,7 +133,7 @@ def quantize_activations_cuda(x: torch.Tensor
     if err != 0:
         raise RuntimeError(f"quantize_act kernel launch failed: CUDA error "
                            f"{err}")
-    quantize_activations.launches += 1
+    kernels.count_launch(quantize_activations)
     return xq, sx
 
 

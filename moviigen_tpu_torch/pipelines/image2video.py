@@ -10,7 +10,9 @@ Counterpart of ``moviigen_tpu/pipelines/image2video.py``:
   31st-block features of the raw image;
 - ``WanI2V``: ``WanT2V`` plus the CLIP tower, whose ``generate`` feeds
   ``clip_fea`` and ``y`` to the i2v DiT (in_dim = 16 latent + 20
-  conditioning channels) under the same CFG rule.
+  conditioning channels) under the same CFG rule; with ``mesh`` and
+  ``sp_mode`` as one rank of a sequence-parallel group, as ``WanT2V``
+  (the 257-key image cross-attention stays local to each rank's tokens).
 
 Everything lives on one device beside the t2v pipeline's models: the fp32
 ViT-H/14 adds 2.5 GB. The conditioning video is encoded in fp32 (the
@@ -89,7 +91,8 @@ class WanI2V(WanT2V):
                  residual_dtype: str = "float32", device=None,
                  checkpoint_dir: Optional[str] = None,
                  quant: Optional[str] = None, prompt_cache: bool = True,
-                 clip_checkpoint: str = clipm.CLIP_CHECKPOINT):
+                 clip_checkpoint: str = clipm.CLIP_CHECKPOINT,
+                 mesh=None, sp_mode: str = "ulysses"):
         if config.model.model_type != "i2v":
             raise ValueError(f"WanI2V needs an i2v model config, got "
                              f"{config.name} ({config.model.model_type})")
@@ -97,7 +100,8 @@ class WanI2V(WanT2V):
                          attn_backend=attn_backend,
                          residual_dtype=residual_dtype, device=device,
                          checkpoint_dir=checkpoint_dir, quant=quant,
-                         prompt_cache=prompt_cache)
+                         prompt_cache=prompt_cache, mesh=mesh,
+                         sp_mode=sp_mode)
         self.clip_cfg = clipm.CLIPVisionConfig()
         path = (os.path.join(checkpoint_dir, clip_checkpoint)
                 if checkpoint_dir is not None else None)
@@ -119,10 +123,11 @@ class WanI2V(WanT2V):
                  sample_solver: str = "unipc", sampling_steps: int = 40,
                  guide_scale: float = 5.0, n_prompt: str = "",
                  seed: int = -1, noise: Optional[np.ndarray] = None,
-                 return_latents: bool = False) -> np.ndarray:
+                 return_latents: bool = False) -> Optional[np.ndarray]:
         """image: [3, H, W] float in [-1, 1]. Returns [C, F, H, W] numpy
         float32 in [-1, 1], or the final latent with ``return_latents``
-        (the JAX ``WanI2V.generate``). ``self.timings`` adds encode_s (the
+        (the JAX ``WanI2V.generate``); under a mesh as ``WanT2V.generate``
+        (every rank conditions and denoises, rank 0 decodes). ``self.timings`` adds encode_s (the
         conditioning video's VAE encode) and clip_s to t2v's."""
         ctx_pair = self._start_request(input_prompt, n_prompt)
         image = torch.as_tensor(np.asarray(image, np.float32),

@@ -12,6 +12,17 @@ decode, and the next request brings it back. Weights are random (made from
 (``checkpoint_dir``), or carried from a JAX parameter tree with
 ``convert``.
 
+With a ``mesh`` (a ``parallel.comm.Comm``: ``DistComm`` for one process
+per card under ``torchrun``, or a ``ThreadComm`` rank) the pipeline is one
+rank of a sequence-parallel group, as the JAX ``WanT2V(mesh=...)`` is:
+the umT5 encoder's and the DiT's block weights are held as shards over the
+sequence axes and gathered per block, the CFG pair always runs batched
+(split over the ``data`` axis), the DiT runs ``sequence_parallel_forward``
+in ``sp_mode`` (ulysses | ring | usp) and the token count is rounded up to
+a multiple of the sequence-parallel degree. Every rank denoises; rank 0
+alone decodes and returns the video (the reference's rule), the others
+return None.
+
 ``quant`` (int8 | int4 | w8a8) quantizes the DiT's block linears and,
 for an encoder above ``_T5_OFFLOAD_BYTES``, the umT5 weight-only. With a
 checkpoint directory the quantized trees are cached beside the
@@ -52,6 +63,10 @@ from ..ops.quantization import (load_quantized_checkpoint,
                                 read_quantized_metadata,
                                 save_quantized_checkpoint)
 from ..ops.rope import rope_3d_freqs
+from ..parallel.mesh import mesh_axis_size
+from ..parallel.sharding import (make_param_gather, shard_axis,
+                                 shard_pipeline_params)
+from ..parallel.ulysses import SP_MODES, sequence_parallel_forward
 
 # Output pixels (frames × H × W) above which the decode streams over
 # latent-frame chunks instead of decoding the clip as one tensor.
@@ -142,15 +157,19 @@ def decode_video(vae_params, latent: torch.Tensor,
 
 
 def compute_target_shape_and_seq_len(config: PipelineConfig,
-                                     size: Tuple[int, int], frame_num: int):
+                                     size: Tuple[int, int], frame_num: int,
+                                     sp_size: int = 1):
     """Latent target shape, token seq_len and patch grid for a (W, H) size
-    (ref text2video.py:160-166): 480×832 @ 81f → 32,760 tokens."""
+    (ref text2video.py:160-166): 480×832 @ 81f → 32,760 tokens; seq_len
+    is rounded up to a multiple of ``sp_size`` (the JAX
+    ``compute_target_shape_and_seq_len``)."""
     vs = config.vae_stride
     ps = config.model.patch_size
     target_shape = (config.vae.z_dim, (frame_num - 1) // vs[0] + 1,
                     size[1] // vs[1], size[0] // vs[2])
     seq_len = int(math.ceil((target_shape[2] * target_shape[3])
-                            / (ps[1] * ps[2]) * target_shape[1]))
+                            / (ps[1] * ps[2]) * target_shape[1]
+                            / sp_size)) * sp_size
     grid = (target_shape[1] // ps[0], target_shape[2] // ps[1],
             target_shape[3] // ps[2])
     return target_shape, seq_len, grid
@@ -165,13 +184,17 @@ def cfg_batched(model_dim: int, seq_len: int) -> bool:
 
 class WanT2V:
     """Owns the DiT, the T5 encoder and the VAE on one device and
-    generates videos."""
+    generates videos; with a ``mesh``, as one rank of a sequence-parallel
+    group."""
 
     def __init__(self, config: PipelineConfig, init_seed: int = 0,
                  attn_backend: str = "auto",
                  residual_dtype: str = "float32", device=None,
                  checkpoint_dir: Optional[str] = None,
-                 quant: Optional[str] = None, prompt_cache: bool = True):
+                 quant: Optional[str] = None, prompt_cache: bool = True,
+                 mesh=None, sp_mode: str = "ulysses"):
+        if sp_mode not in SP_MODES:
+            raise ValueError(f"unknown sp_mode: {sp_mode}")
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be int8|int4|w8a8, got {quant!r}")
         if residual_dtype not in ("float32", "bfloat16"):
@@ -184,6 +207,10 @@ class WanT2V:
         self.residual_dtype = getattr(torch, residual_dtype)
         self.sample_neg_prompt = config.sample_neg_prompt
         self.timings = {}
+        self.mesh = mesh
+        self.sp_mode = sp_mode
+        self.sp_size = mesh_axis_size(mesh, "ring") * mesh_axis_size(
+            mesh, "seq")
 
         tc = config.t5
         t5_bytes = 2 * (tc.vocab_size * tc.dim + tc.num_layers * (
@@ -215,6 +242,13 @@ class WanT2V:
                 tok_path = config.t5_tokenizer
         self.t5.eval()
         self.dit.eval()
+        self._gather = None
+        if mesh is not None:
+            # the JAX shard_pipeline_params: the models now hold this
+            # rank's shards; the full weights go with the old modules
+            self.t5, self.vae_params, self.dit = shard_pipeline_params(
+                mesh, self.t5, self.vae_params, self.dit)
+            self._gather = make_param_gather(mesh, shard_axis(mesh))
         self.dit_parked = False  # the DiT is in host memory (generate())
         self.tokenizer = load_tokenizer(
             tok_path, seq_len=config.model.text_len,
@@ -223,8 +257,11 @@ class WanT2V:
         # Prompt-embedding cache beside the checkpoint: repeated prompts
         # (validation sets, retries, the CFG negative prompt) skip the
         # encoder.
+        # Under a mesh the encoder's weight gathers are collective, so
+        # every rank encodes every prompt and no rank may skip the encoder
+        # on a cache hit: the cache is off there.
         self._prompt_cache_dir = None
-        if prompt_cache and checkpoint_dir is not None:
+        if prompt_cache and checkpoint_dir is not None and mesh is None:
             self._prompt_cache_dir = os.path.join(
                 checkpoint_dir, "moviigen_prompt_cache")
             t5_src = os.path.join(checkpoint_dir, config.t5_checkpoint)
@@ -382,7 +419,8 @@ class WanT2V:
                               device=self.device)
         mask = torch.as_tensor(np.asarray(mask), dtype=torch.long,
                                device=self.device)
-        ctx = self.t5(ids, mask)
+        ids, mask = self._from_rank0(ids), self._from_rank0(mask)
+        ctx = self.t5(ids, mask, param_gather_fn=self._gather)
         return ctx * mask[..., None].to(ctx.dtype)
 
     def _sync(self) -> None:
@@ -406,12 +444,13 @@ class WanT2V:
                  n_prompt: str = "",
                  seed: int = -1,
                  noise: Optional[np.ndarray] = None,
-                 return_latents: bool = False) -> np.ndarray:
+                 return_latents: bool = False) -> Optional[np.ndarray]:
         """Generate a video (ref WanT2V.generate, text2video.py:114-271).
 
         Returns [C, F, H, W] numpy float32 in [-1, 1], or the final latent
         [z, F', H', W'] with ``return_latents``. ``noise`` replaces the
-        seeded initial latent. Per-phase seconds land in ``self.timings``
+        seeded initial latent. Under a mesh every rank returns the latent,
+        and only rank 0 the video (the others None). Per-phase seconds land in ``self.timings``
         (t5_s, step_s list, decode_s; dit_unpark_s when the previous
         request parked the DiT, dit_park_s when this one does)."""
         ctx_pair = self._start_request(input_prompt, n_prompt)
@@ -421,6 +460,22 @@ class WanT2V:
         if return_latents:
             return latent[0].cpu().numpy()
         return self.decode_request(latent)
+
+    @property
+    def is_output_rank(self) -> bool:
+        """Whether this pipeline decodes and returns the video: always
+        without a mesh, else on rank 0 alone."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _from_rank0(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank of the mesh (``x`` itself without
+        one): what each rank draws or tokenizes on its own (a seed < 0; the
+        hash tokenizer's ids, salted per process) must agree."""
+        if self.mesh is None:
+            return x
+        n = x.shape[0]
+        x = self.mesh.all_gather(x, shard_axis(self.mesh), 0)[:n]
+        return self.mesh.all_gather(x, "data", 0)[:n]
 
     def _start_request(self, input_prompt: str, n_prompt: str):
         """A request's first stage: fresh ``self.timings``, the DiT back on
@@ -444,9 +499,11 @@ class WanT2V:
         ``y`` [1, ...]), repeated for the batched CFG pair."""
         cfg = self.config
         target_shape, seq_len, grid = compute_target_shape_and_seq_len(
-            cfg, size, frame_num)
+            cfg, size, frame_num, self.sp_size)
         if seed < 0:
             seed = int.from_bytes(os.urandom(4), "little")
+        seed = int(self._from_rank0(torch.tensor(
+            [seed], dtype=torch.int64, device=self.device))[0])
         if noise is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             latent = torch.randn((1, *target_shape), generator=gen,
@@ -470,17 +527,28 @@ class WanT2V:
             raise NotImplementedError(f"Unsupported solver: {sample_solver}")
 
         rope = rope_3d_freqs(grid, cfg.model.head_dim, device=self.device)
-        batched = cfg_batched(cfg.model.dim, seq_len)
+        # under a mesh the tokens are sharded and the pair is split over
+        # 'data': it stays batched (the JAX rule, text2video.py:604)
+        use_sp = self.mesh is not None
+        batched = use_sp or cfg_batched(cfg.model.dim, seq_len)
         cond2 = {k: v.expand(2, *v.shape[1:]) for k, v in cond.items()}
 
         def fwd(x, t, ctx, extra):
+            if use_sp:
+                return sequence_parallel_forward(
+                    self.dit, x, t, ctx, rope, self.mesh, seq_len=seq_len,
+                    attn_backend=self.attn_backend, sp_mode=self.sp_mode,
+                    fsdp_params=True, residual_dtype=self.residual_dtype,
+                    **extra)
             return self.dit(x, t, ctx, rope, seq_len=seq_len,
                             attn_backend=self.attn_backend,
                             residual_dtype=self.residual_dtype, **extra)
 
-        logging.info("denoising: %d %s steps at %d tokens (%s CFG)",
+        logging.info("denoising: %d %s steps at %d tokens (%s CFG%s)",
                      sampling_steps, sample_solver, seq_len,
-                     "batched" if batched else "sequential")
+                     "batched" if batched else "sequential",
+                     f", {self.sp_mode} over {self.sp_size} ranks"
+                     if use_sp else "")
         state = scheduler.init_state(latent)
         for i, t in enumerate(scheduler.timesteps):
             ts = time.perf_counter()
@@ -510,12 +578,17 @@ class WanT2V:
         self._sync()
         self.timings["dit_unpark_s"] = time.perf_counter() - t0
 
-    def decode_request(self, latent: torch.Tensor) -> np.ndarray:
+    def decode_request(self, latent: torch.Tensor) -> Optional[np.ndarray]:
         """A request's last stage: park the DiT when the decode needs over
         FREE_DIT_DECODE_GIB (``decode_gib``), then decode
         ``latent`` [1, z, T', H', W'] → [C, F, H, W] numpy; dit_park_s and
-        decode_s land in ``self.timings``."""
-        if decode_gib(latent.shape, self.config.vae) > FREE_DIT_DECODE_GIB:
+        decode_s land in ``self.timings``. Under a mesh only rank 0
+        decodes (the others return None) and the DiT, held as shards,
+        stays (the JAX pipeline frees it only without a mesh)."""
+        if not self.is_output_rank:
+            return None
+        if self.mesh is None and decode_gib(
+                latent.shape, self.config.vae) > FREE_DIT_DECODE_GIB:
             t0 = time.perf_counter()
             self.dit.to("cpu")  # gives its device memory back to the cache
             self.dit_parked = True

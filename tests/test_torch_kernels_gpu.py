@@ -835,3 +835,71 @@ def test_w8a8_lora_side_path_on_cuda(cuda):
         del attn.o.lora
         assert not torch.equal(wm._dense(attn.o, x, torch.bfloat16), one)
         attn.o.lora = bare
+
+
+def test_ring_of_stats_launches_matches_one_shot_kernel(cuda):
+    """Ring attention over 4 thread ranks on the card (``ThreadComm``):
+    each rank runs the stats kernel on every key shard as it comes round
+    and merges the partials in fp32 (``ring_merge``); against the one-shot
+    forward kernel within ``REL_TOL`` (a partial's bf16 output is rounded
+    once more than the one-shot's). Batch entry 1's keys end inside the
+    third shard, so its last shard is empty (k_len 0: m = -1e30, l = 0)."""
+    from moviigen_tpu_torch.parallel import ring
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+
+    q, k, v = _qkv(cuda, 2, 2000, 2000)
+    k_lens = torch.tensor([2000, 1200], device="cuda", dtype=torch.int32)
+    want = tfa.flash_attention_cuda(q, k, v, k_lens)
+    shards = [x.chunk(4, dim=1) for x in (q, k, v)]
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        outs = run_ranks(lambda c: ring.ring_self_attention(
+            *(s[c.rank].contiguous() for s in shards), k_lens, c),
+            thread_mesh(seq=4))
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["stats_launches"] == 16
+    _close(torch.cat(outs, dim=1), want)
+
+
+def test_ulysses_thread_ranks_match_one_process_attention(cuda):
+    """Ulysses over 4 thread ranks at the 14B's 40 heads: the all-to-all
+    hands each rank 10 heads over the whole sequence and the forward
+    kernel runs once per rank; every (batch, head, query block) item is
+    the same computation as in the one-process call, so the output is
+    the same bits."""
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+    from moviigen_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+    q, k, v = (torch.randn(2, 1560, 40, 128, generator=cuda, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    k_lens = torch.tensor([1560, 1000], device="cuda", dtype=torch.int32)
+    want = tfa.flash_attention_cuda(q, k, v, k_lens)
+    shards = [x.chunk(4, dim=1) for x in (q, k, v)]
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        outs = run_ranks(lambda c: ulysses_self_attention(
+            *(s[c.rank] for s in shards), k_lens, c), thread_mesh(seq=4))
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["launches"] == 4
+    assert torch.equal(torch.cat(outs, dim=1), want)
+
+
+def test_thread_ranks_run_on_the_callers_stream(cuda):
+    """Inside ``torch.cuda.stream(s)`` the thread ranks launch on ``s``,
+    the stream that made their inputs, so a gather of tensors that ``s``
+    is still writing reads them finished."""
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+
+    side = torch.cuda.Stream()
+    a = torch.randn(4096, 4096, generator=cuda, device="cuda")
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side), torch.no_grad():
+        xs = [a @ a + r for r in range(4)]  # queued on ``side``
+        streams = run_ranks(lambda c: torch.cuda.current_stream(),
+                            thread_mesh(seq=4))
+        outs = run_ranks(lambda c: c.all_gather(xs[c.rank], "seq", 0),
+                         thread_mesh(seq=4))
+        want = torch.cat(xs)
+    torch.cuda.synchronize()
+    assert all(st == side for st in streams)
+    assert all(torch.equal(o, want) for o in outs)

@@ -1,0 +1,312 @@
+"""The port's sequence parallelism (``moviigen_tpu_torch/parallel``)
+against the JAX package's on its virtual CPU mesh (``tests/conftest.py``),
+at t2v-tiny in fp32.
+
+The port's ranks are threads (``ThreadComm``); ``test_torch_parallel_dist``
+holds ``DistComm`` over gloo to the same results. Both DiTs carry the
+same weights (the JAX random init with a live head, through ``convert``),
+and the JAX side runs its plain attention (``attn_backend="xla"``) where
+the port runs its kernels' plain twins on the CPU. The two agree within
+1e-5 of the output's scale: the same fp32 arithmetic summed in other
+orders (the twins' base-2 softmax over 512-key blocks against one
+softmax), a few ulps of each logit; a scrambled head, token shard or
+padding row is off by O(1)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.shard_map import shard_map
+from jax.sharding import PartitionSpec as P
+
+from moviigen_tpu.configs import WAN_CONFIGS as JAX_CONFIGS
+from moviigen_tpu.models import wan_model as jwan
+from moviigen_tpu.ops.rope import rope_3d_freqs as jax_rope
+from moviigen_tpu.parallel import ring as jring
+from moviigen_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from moviigen_tpu.parallel.mesh import make_pod_mesh as jax_make_pod_mesh
+from moviigen_tpu.parallel.ulysses import \
+    sequence_parallel_forward as jax_sp_forward
+from moviigen_tpu_torch import convert
+from moviigen_tpu_torch.configs import WAN_CONFIGS
+from moviigen_tpu_torch.models.wan_model import WanModel
+from moviigen_tpu_torch.ops.flash_attention import LOG2E
+from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+from moviigen_tpu_torch.parallel import ring, sharding
+from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+from moviigen_tpu_torch.parallel.mesh import make_mesh, make_pod_mesh
+from moviigen_tpu_torch.parallel.ulysses import sequence_parallel_forward
+
+CFG = WAN_CONFIGS["t2v-tiny"].model
+JCFG = JAX_CONFIGS["t2v-tiny"].model
+REL_TOL = 1e-5
+GRID = (4, 4, 4)  # 64 tokens
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = jwan.init_params(jax.random.PRNGKey(0), JCFG, dtype=jnp.float32)
+    head = params["head"]["head"]
+    head["kernel"] = jnp.asarray(np.random.default_rng(1).standard_normal(
+        head["kernel"].shape) * 0.1, jnp.float32)
+    model = convert.load_wan_params(
+        WanModel(CFG, dtype=torch.float32, device="cpu"),
+        jax.tree_util.tree_map(np.asarray, params))
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, CFG.in_dim, 4, 8, 8)).astype(np.float32)
+    t = np.asarray([500.0, 250.0], np.float32)
+    ctx = rng.standard_normal((2, CFG.text_len, CFG.text_dim)) \
+        .astype(np.float32)
+    return params, model, x, t, ctx
+
+
+def _port(model, x, t, ctx, mesh, **kw):
+    """The port's SP forward on every thread rank of ``mesh``
+    ((data, ring, seq)); asserts that the ranks agree, returns rank 0's."""
+    rope = rope_3d_freqs(GRID, CFG.head_dim)
+    args = [torch.from_numpy(a) for a in (x, t, ctx)]
+    fsdp = kw.pop("fsdp", False)
+
+    def rank(comm):
+        m = model
+        if fsdp:
+            m = sharding.shard_params(model, sharding.dit_param_specs(model),
+                                      comm, sharding.shard_axis(comm))
+        return sequence_parallel_forward(m, *args, rope, comm,
+                                         compute_dtype=torch.float32,
+                                         fsdp_params=fsdp, **kw)
+
+    data, ring_n, seq = mesh
+    with torch.no_grad():
+        outs = run_ranks(rank, thread_mesh(data=data, ring=ring_n, seq=seq))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    return outs[0].numpy()
+
+
+def _close(got, want):
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(want).max() > 0.1  # the live head shapes the output
+    assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("sp_mode,mesh,seq_len,fsdp", [
+    ("ulysses", (1, 1, 2), None, False),
+    ("ulysses", (2, 1, 2), None, True),
+    ("ring", (1, 1, 2), 72, False),       # 64 tokens padded to 72
+    ("usp", (1, 2, 2), None, False),
+    ("usp", (2, 2, 2), 72, True),
+])
+def test_sp_forward_matches_jax(setup, sp_mode, mesh, seq_len, fsdp):
+    """The port's SP forward over thread ranks against JAX's
+    ``sequence_parallel_forward`` on the same (data, ring, seq) mesh; the
+    port's with ``fsdp`` holds its block weights as shards gathered per
+    block (the same bytes, so the same result)."""
+    params, model, x, t, ctx = setup
+    data, ring_n, seq = mesh
+    jmesh = jax_make_mesh(data=data, ring=ring_n, seq=seq)
+    rope = jax_rope(GRID, JCFG.head_dim)
+    want = np.asarray(jax.jit(lambda p, x, t, c: jax_sp_forward(
+        p, x, t, c, JCFG, rope, jmesh, seq_len=seq_len,
+        compute_dtype=jnp.float32, attn_backend="xla", sp_mode=sp_mode))(
+        params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx)))
+    got = _port(model, x, t, ctx, mesh, seq_len=seq_len, sp_mode=sp_mode,
+                fsdp=fsdp)
+    _close(got, want)
+
+
+def test_sp_forward_equals_one_process(setup):
+    """Ulysses over 2 ranks is the one-process forward, bit for bit, on
+    the CPU: each head's attention is the same computation, split over
+    ranks."""
+    _, model, x, t, ctx = setup
+    with torch.no_grad():
+        want = model(*(torch.from_numpy(a) for a in (x, t, ctx)),
+                     rope_3d_freqs(GRID, CFG.head_dim),
+                     compute_dtype=torch.float32).numpy()
+    got = _port(model, x, t, ctx, (1, 1, 2), sp_mode="ulysses")
+    assert np.array_equal(got, want)
+
+
+def test_all_to_all_matches_jax():
+    """``Comm.all_to_all`` is ``jax.lax.all_to_all(tiled=True)``: heads
+    scatter, tokens gather in rank order (and back), with heads that
+    differ, over 4 ranks."""
+    x = np.random.default_rng(2).standard_normal((2, 8, 4, 3)) \
+        .astype(np.float32)  # [B, L, N, D], tokens sharded over 'seq'
+    jmesh = jax_make_mesh(data=1, seq=4)
+
+    def jfwd(a):
+        return jax.lax.all_to_all(a, "seq", 2, 1, tiled=True)
+
+    want = np.asarray(shard_map(jfwd, mesh=jmesh, in_specs=P(None, "seq"),
+                                out_specs=P(None, None, "seq"),
+                                check_rep=False)(jnp.asarray(x)))
+    xs = torch.from_numpy(x).chunk(4, dim=1)
+    comms = thread_mesh(seq=4)
+    outs = run_ranks(lambda c: c.all_to_all(xs[c.rank], "seq", 2, 1), comms)
+    assert np.array_equal(torch.cat(outs, dim=2).numpy(), want)
+    back = run_ranks(lambda c: c.all_to_all(outs[c.rank], "seq", 1, 2),
+                     comms)
+    assert np.array_equal(torch.cat(back, dim=1).numpy(), x)
+
+
+def test_mesh_layout_matches_jax():
+    """A rank's mesh position and axis indices are those of the JAX
+    device at the same place of ``make_mesh``'s (data, ring, seq) grid."""
+    jmesh = jax_make_mesh(data=2, ring=2, seq=2)
+    for comm in thread_mesh(data=2, ring=2, seq=2):
+        c = comm.coords
+        assert jmesh.devices[c["data"], c["ring"], c["seq"]].id \
+            == comm.rank
+        assert comm.axis_index(("ring", "seq")) == 2 * c["ring"] + c["seq"]
+    assert thread_mesh(data=2, seq=4)[0].shape == dict(
+        jax_make_mesh(data=2, seq=4).shape)
+
+
+def test_local_klens_matches_jax():
+    k_lens = np.asarray([72, 64, 10, 0], np.int32)
+    for src in range(4):
+        want = np.asarray(jring._local_klens(jnp.asarray(k_lens), src, 18))
+        got = ring._local_klens(torch.from_numpy(k_lens), src, 18)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+    assert ring._local_klens(None, 1, 18) is None
+
+
+def test_ring_with_an_empty_shard_matches_jax():
+    """Ring attention over 4 thread ranks with batch entry 1's keys ending
+    at 27 of 48: its last key shard (36-47) is empty and the third holds 3
+    keys; the empty shard's partial (m = -1e30, l = 0) must add nothing.
+    Against JAX's ring on its mesh."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 48, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    k_lens = np.asarray([48, 27], np.int32)
+    jmesh = jax_make_mesh(data=1, seq=4)
+
+    def jfn(q, k, v, kl):
+        return jring.ring_self_attention(q, k, v, kl, axis_name="seq",
+                                         sp_size=4, attn_backend="xla",
+                                         compute_dtype=jnp.float32)
+
+    spec = P(None, "seq")
+    want = np.asarray(jax.jit(shard_map(
+        jfn, mesh=jmesh, in_specs=(spec, spec, spec, P()), out_specs=spec,
+        check_rep=False))(*(jnp.asarray(a) for a in (q, k, v, k_lens))))
+    shards = [torch.from_numpy(a).chunk(4, dim=1) for a in (q, k, v)]
+    with torch.no_grad():
+        outs = run_ranks(lambda c: ring.ring_self_attention(
+            *(s[c.rank] for s in shards), torch.from_numpy(k_lens), c,
+            compute_dtype=torch.float32), thread_mesh(seq=4))
+    got = torch.cat(outs, dim=1).numpy()
+    assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
+def test_ring_merge_of_an_empty_partial():
+    """``ring_merge`` with a partial that attended to nothing (the stats a
+    fully masked key shard gives) leaves the accumulator as it was, and a
+    first step from the empty accumulator takes the partial as it is."""
+    rng = np.random.default_rng(4)
+    o = torch.from_numpy(rng.standard_normal((1, 5, 2, 8)).astype(np.float32))
+    m = torch.from_numpy(rng.standard_normal((1, 5, 2)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 3, (1, 5, 2)).astype(np.float32))
+    empty = (torch.zeros_like(o), torch.full_like(m, -1e30 / LOG2E),
+             torch.zeros_like(l))
+    got = ring.ring_merge(o, m, l, *empty)
+    torch.testing.assert_close(got[0], o, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[1], m) and torch.equal(got[2], l)
+    start = (torch.zeros_like(o), torch.full_like(m, -1e30),
+             torch.zeros_like(l))
+    got = ring.ring_merge(*start, o, m, l)
+    torch.testing.assert_close(got[0], o, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[1], m) and torch.equal(got[2], l)
+
+
+def test_ring_refuses_autograd():
+    q = torch.zeros(1, 4, 1, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="11b"):
+        ring.ring_self_attention(q, q, q, None, thread_mesh()[0])
+
+
+@pytest.mark.parametrize("case", ["heads", "usp_mesh", "seq_len", "mode"])
+def test_sp_errors_match_jax(setup, case):
+    """What JAX's ``sequence_parallel_forward`` asserts, the port raises
+    as ValueError: heads not divisible by the Ulysses degree (4 heads over
+    8), usp without a ring axis, a (padded) length not a multiple of sp
+    (66 over 4), an unknown mode (a ValueError on both sides)."""
+    params, model, x, t, ctx = setup
+    mesh, kw = {"heads": ((1, 1, 8), {}),
+                "usp_mesh": ((1, 1, 4), dict(sp_mode="usp")),
+                "seq_len": ((1, 1, 4), dict(seq_len=66)),
+                "mode": ((1, 1, 2), dict(sp_mode="spiral"))}[case]
+    data, ring_n, seq = mesh
+    jerr = ValueError if case == "mode" else AssertionError
+    with pytest.raises(jerr):
+        jax_sp_forward(params, jnp.asarray(x), jnp.asarray(t),
+                       jnp.asarray(ctx), JCFG, jax_rope(GRID, JCFG.head_dim),
+                       jax_make_mesh(data=data, ring=ring_n, seq=seq),
+                       compute_dtype=jnp.float32, attn_backend="xla", **kw)
+    with pytest.raises(ValueError), torch.no_grad():
+        sequence_parallel_forward(
+            model, *(torch.from_numpy(a) for a in (x, t, ctx)),
+            rope_3d_freqs(GRID, CFG.head_dim),
+            thread_mesh(data=data, ring=ring_n, seq=seq)[0],
+            compute_dtype=torch.float32, **kw)
+
+
+def test_mesh_errors_match_jax():
+    """A mesh that needs more ranks than the world has, and a ``data``
+    axis that the slices do not divide: ValueError on both sides (the
+    port's world here is one gloo rank of this process)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError):
+        jax_make_mesh(data=1, seq=16)
+    with pytest.raises(ValueError):
+        jax_make_pod_mesh(data=3, seq=2, num_slices=2)
+    with pytest.raises(ValueError):
+        make_pod_mesh(data=3, seq=2, num_slices=2)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+            make_mesh(data=1, seq=2)
+        comm = make_mesh(data=1, seq=1)
+        x = torch.arange(24.0).reshape(2, 3, 4)
+        assert torch.equal(comm.all_to_all(x, "seq", 2, 1), x)
+        assert torch.equal(comm.all_gather(x, ("ring", "seq"), 1), x)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_param_specs_follow_jax(setup):
+    """The port's shard dims are the JAX specs' axes on the transposed
+    ([out, in]) weights: every sharded JAX block kernel maps to one port
+    weight, cut along the other dimension index."""
+    params, model, *_ = setup
+    from moviigen_tpu.parallel.sharding import dit_param_specs as jspecs
+
+    js = jspecs(params, axis="seq")["blocks"]
+    spec = sharding.dit_param_specs(model)
+    names = {"self_attn": "self_attn", "cross_attn": "cross_attn",
+             "ffn": None}
+    want = {}
+    for group, mats in js.items():
+        if group not in names:
+            continue
+        for mat, leaves in mats.items():
+            if "kernel" not in leaves or "seq" not in tuple(
+                    leaves["kernel"]):
+                continue
+            jdim = tuple(leaves["kernel"]).index("seq") - 1  # layer axis
+            owner = f"ffn_{mat}" if group == "ffn" else f"{group}.{mat}"
+            for i in range(CFG.num_layers):
+                want[f"blocks.{i}.{owner}.weight"] = 1 - jdim
+    assert spec == want
