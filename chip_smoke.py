@@ -88,7 +88,19 @@ Phases:
     4-block bf16 and W8A8 DiT, a 4-layer umT5-XXL) bit-equal to the
     unsharded one; (d) ``cli.generate --dit_fsdp --t5_fsdp`` under
     torchrun's variables for one rank, NCCL at world size 1, over 8b's
-    directory, equal to the run without the flags.
+    directory, equal to the run without the flags;
+14. the host utilities and the apps: (a) ``cli.finetune`` for t2v-1.3B
+    as in 6b with ``--profile_steps 2``, every batch read through the
+    native reader pool, the Chrome trace holding 2 steps' stats-forward,
+    dKV and dQ launches, device ms by category, then 6b's dataset through
+    the loader with and without the pool, bit-equal; (b) the umT5-XXL
+    decoder at full width (2 layers) in fp32 on the card against the CPU,
+    and in bf16; (c) the gradio app (gradio stubbed) over 8b's directory:
+    two 832×480×17 requests equal to ``WanT2V.generate``'s, Prompt
+    Enhance offline giving the prompt back; (d) ``cli.generate
+    --use_prompt_extend`` with each rewriter failing, the video unchanged;
+15. (only when asked: ``--phases 15``) 11a's QLoRA run with
+    ``--profile_steps 2``: device ms by category and the top 40 kernels.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -817,7 +829,11 @@ def kernels_line(report):
                 "lora_w8a8_launches", {}).get("launches", 0),
             "i2v request (phase 12c)": report.get("i2v_launches", {}).get(
                 "launches", 0),
-            **_sp_launches(report, "launches")},
+            **_sp_launches(report, "launches"),
+            "gradio app requests (phase 14c)": report.get(
+                "app_launches", {}).get("launches", 0),
+            "generate --use_prompt_extend (phase 14d)": report.get(
+                "extend_launches", {}).get("launches", 0)},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"],
         "before_redesign_ms": main["before_redesign_ms"],
@@ -920,7 +936,11 @@ def kernels_line(report):
         return {"ft (phase 6b)": counts.get(key, 0),
                 "qlora (phase 11a)": report.get("qlora_launches", {}).get(
                     key, 0),
-                "ot (phase 11d)": report.get("ot_launches", {}).get(key, 0)}
+                "ot (phase 11d)": report.get("ot_launches", {}).get(key, 0),
+                "ft profiled (phase 14a)": report.get(
+                    "ft_profile_launches", {}).get(key, 0),
+                "qlora profiled (phase 15)": report.get(
+                    "qlora_profile_launches", {}).get(key, 0)}
 
     stats = [c for c in train if "kernel" in c]
     bwd = [c for c in train if "kernel" not in c]
@@ -1254,7 +1274,8 @@ def profile(fn, label, phase):
     once more without it: device time by kernel and by category, and the
     device's idle share against the host clock."""
     import torch
-    from torch.autograd import DeviceType
+
+    from moviigen_tpu_torch.utils.profiling import device_kernels
 
     fn()
     torch.cuda.synchronize()
@@ -1269,26 +1290,29 @@ def profile(fn, label, phase):
     fn()
     torch.cuda.synchronize()
     wall_ms_unprofiled = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    return kernel_summary(device_kernels(prof), phase, shape=label,
+                          wall_ms=wall_ms,
+                          wall_ms_unprofiled=wall_ms_unprofiled)
+
+
+def kernel_summary(kernels, phase, **head):
+    """``head`` with the device ms and launches by ``_kernel_category`` of
+    a profiler's ``{kernel: (launches, ms)}`` (``utils.profiling.
+    device_kernels``) and, given ``wall_ms``, the device's idle share;
+    logged with the top 40 kernels."""
+    rows = sorted(((name, ms, count) for name, (count, ms)
+                   in kernels.items()), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     cats, launches = {}, {}
     for name, ms, count in rows:
         cat = _kernel_category(name)
         cats[cat] = cats.get(cat, 0.0) + ms
         launches[cat] = launches.get(cat, 0) + count
-    summary = dict(
-        shape=label, wall_ms=wall_ms, wall_ms_unprofiled=wall_ms_unprofiled,
-        device_ms=device_ms,
-        idle_share=(1.0 - device_ms / wall_ms) if rows else None,
-        categories_ms=cats, categories_launches=launches)
+    summary = dict(head, device_ms=device_ms)
+    if "wall_ms" in head:
+        summary["idle_share"] = (1.0 - device_ms / head["wall_ms"]) \
+            if rows else None
+    summary.update(categories_ms=cats, categories_launches=launches)
     log(f"phase {phase}: profile " + json.dumps(summary))
     for name, ms, count in rows[:40]:
         log(f"  {ms:10.3f} ms  x{count:<5d} {name[:110]}")
@@ -1729,7 +1753,7 @@ def phase_ckpt_dir_serving(report):
     twice, over a random checkpoint directory in the reference layout
     that the port's exporters write first: the first start quantizes and
     writes the caches, the second must start from them alone. The
-    directory stays for phase 13d when that phase runs too."""
+    directory stays for phases 13d and 14 when they run too."""
     import pathlib
     import shutil
 
@@ -1805,7 +1829,7 @@ def phase_ckpt_dir_serving(report):
                               starts=rows)
     log("phase 8b: " + json.dumps(report["ckpt_dir"]))
     del pipe
-    if report.get("keep_ckpt_dir"):
+    if report.get("ckpt_keepers"):
         report["ckpt_dir_path"] = ckpt
     else:
         shutil.rmtree(root)
@@ -3377,8 +3401,6 @@ def phase_sp_cli(report):
     request's timings) is shown at INFO. The process group is taken down
     after."""
     import logging
-    import pathlib
-    import shutil
     import socket
 
     import torch
@@ -3388,11 +3410,8 @@ def phase_sp_cli(report):
     from moviigen_tpu_torch.ops import flash_attention as fa
     from moviigen_tpu_torch.parallel import distributed
 
-    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
-    ckpt = report.get("ckpt_dir_path")
-    if ckpt is None:
-        ckpt = _export_ckpt_dir(root, "13d")[0]
-    _cut_task()
+    ckpt = _ckpt_dir(report, "13d")
+    root = ckpt.parent
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -3461,7 +3480,7 @@ def phase_sp_cli(report):
                            "at 1")
     if not equal:
         raise RuntimeError("cli: --dit_fsdp --t5_fsdp changed the video")
-    shutil.rmtree(root, ignore_errors=True)
+    _release_ckpt_dir(report, 13)
     torch.cuda.empty_cache()
 
 
@@ -3472,21 +3491,557 @@ def phase_sp(report):
         sub(report)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
+# --------------------------------------- host utilities and the apps
+
+# Phase 14b: umT5-XXL's decoder at full width with its depth cut to 2
+# layers; 2 decoder sequences of 64 tokens over the encoder's 512, both
+# masks live. fp32 on the card (TF32 off) against the CPU: the sums run in
+# another order, so within 1e-4 of the output's largest value.
+T5_DEC_LAYERS, T5_DEC_LEN = 2, 64
+T5_DEC_REL_TOL = 1e-4
+# Phase 14c: the gradio app's Generate over 8b's directory, r1's shape.
+APP_FRAMES, APP_STEPS, APP_SEEDS = 17, 4, (42, 43)
+
+
+@contextlib.contextmanager
+def captured_logs():
+    """The root logger's (level, message) pairs while inside, at INFO."""
+    import logging
+
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(asctime)s] %(levelname)s: %(message)s")
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append((record.levelno, record.getMessage()))
+
+    root = logging.getLogger()
+    handler, level = Lines(logging.INFO), root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def _ckpt_dir(report, phase):
+    """8b's random ``CKPT_TASK`` directory, exported here when phase 8 did
+    not run; ``_release_ckpt_dir`` deletes it after its last user."""
+    if report.get("ckpt_dir_path") is None:
+        root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "serve"
+        report["ckpt_dir_path"] = _export_ckpt_dir(root, phase)[0]
+    _cut_task()
+    return report["ckpt_dir_path"]
+
+
+def _release_ckpt_dir(report, phase):
+    import shutil
+
+    keepers = report.setdefault("ckpt_keepers", set())
+    keepers.discard(phase)
+    if not keepers and report.get("ckpt_dir_path") is not None:
+        shutil.rmtree(report.pop("ckpt_dir_path").parent, ignore_errors=True)
+
+
+def traced_flash_launches(kernels):
+    """Launches of the port's flash kernels in a trace's ``{kernel:
+    (launches, ms)}``: the stats forward, the forward, dKV (its chunk-sum
+    kernel apart) and dQ."""
+    out = dict(stats=0, fwd=0, dkv=0, dq=0)
+    for name, (count, _) in kernels.items():
+        cat = _kernel_category(name)
+        if cat.startswith("flash forward stats"):
+            out["stats"] += count
+        elif cat.startswith("flash forward"):
+            out["fwd"] += count
+        elif cat.startswith("flash dKV") and "reduce" not in name:
+            out["dkv"] += count
+        elif cat.startswith("flash dQ"):
+            out["dq"] += count
+    return out
+
+
+def phase_ft_profiled(report):
+    """(a) ``cli.finetune`` for t2v-1.3B as phase 6b runs it (full width
+    and depth, 32,760 tokens, per-block remat, 6b's synthetic dataset; a
+    random model with a live head) with ``--profile_steps 2``: the loader
+    reads every batch through the native pool (its counter), the Chrome
+    trace under ``<output_dir>/profile`` holds 2 steps' stats, dKV and dQ
+    launches (6b's per-step counts), the timer's line is logged; then 6b's
+    dataset through ``DataLoader`` with and without the pool, bit-equal."""
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.training.data import (
+        DataLoader, LatentDataset,
+        SPAwareAspectRatioLengthBucketDistributedSampler)
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "utils"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = WAN_CONFIGS[TRAIN_TASK].model
+    data_json = _latent_dataset(root / "data", TRAIN_LATENT,
+                                len(PROMPT_LENS), cfg.text_dim, 0)
+    out_dir = root / "out"
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with live_head(), captured_logs() as lines:
+        record = finetune.main([
+            "--task", TRAIN_TASK, "--device", DEVICE,
+            "--data_json_path", str(data_json), "--num_latent_t", "21",
+            "--gradient_checkpointing", "--max_train_steps", str(TRAIN_STEPS),
+            "--profile_steps", "2", "--checkpointing_steps", "1000",
+            "--output_dir", str(out_dir), "--seed", "0"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    report["ft_profile_launches"] = counts
+    sites = 2 * cfg.num_layers  # self + cross attention per block
+    per_step = dict(stats=2 * sites, fwd=0, dkv=sites, dq=sites)
+    want = dict(dict.fromkeys(fa.COUNTERS, 0),
+                stats_launches=per_step["stats"] * TRAIN_STEPS,
+                dkv_launches=sites * TRAIN_STEPS,
+                dq_launches=sites * TRAIN_STEPS)
+    tr = record["profile"]
+    traced = traced_flash_launches(tr.kernels)
+    want_traced = {k: 2 * v for k, v in per_step.items()}
+    timer = [m for _, m in lines
+             if "profiler trace written" in m and "phases: step=" in m]
+    pool = [m for _, m in lines if m == "native reader pool in use"]
+    trace_mb = os.path.getsize(tr.path) / 2**20
+    log(f"phase 14a: finetune {TRAIN_STEPS} steps, 2 profiled, in "
+        f"{main_s:.1f} s: loss {record['loss']}, step_s {record['step_s']}, "
+        f"launches {counts}; trace {tr.path} ({trace_mb:.1f} MiB), traced "
+        f"flash launches {traced}; batches through the pool "
+        f"{record['native_batches']}, in Python {record['python_batches']}; "
+        f"timer line {timer}")
+    if record["step"] != TRAIN_STEPS or not np.isfinite(record["loss"]).all():
+        raise RuntimeError(f"ft profiled: step {record['step']}, loss "
+                           f"{record['loss']}")
+    if counts != want:
+        raise RuntimeError(f"ft profiled: launches {counts}, expected {want}")
+    if traced != want_traced:
+        raise RuntimeError(f"ft profiled: the trace holds {traced}, 2 steps "
+                           f"launch {want_traced}")
+    if pathlib.Path(tr.path).parent != out_dir / "profile":
+        raise RuntimeError(f"ft profiled: trace written to {tr.path}")
+    if len(timer) != 1:
+        raise RuntimeError("ft profiled: the timer's line was not logged")
+    if (record["python_batches"] or record["native_batches"] < TRAIN_STEPS
+            or not pool):
+        raise RuntimeError("ft profiled: the loader did not read every batch "
+                           "through the native pool")
+    summary = kernel_summary(tr.kernels, "14a", trace_mb=trace_mb,
+                             shape="t2v-1.3B fine-tune, 2 steps, 32,760 "
+                                   "tokens, per-block remat")
+
+    # 6b's dataset through the loader with the pool and without it, in
+    # turns; the files are in the page cache (just written)
+    ds = LatentDataset(str(data_json), 21, txt_max_len=cfg.text_len,
+                       text_dim=cfg.text_dim, seed=0)
+    sampler = SPAwareAspectRatioLengthBucketDistributedSampler(
+        batch_size=1, dataset_size=len(ds), rank=0, world_size=1, sp_size=1,
+        lengths=ds.lengths, aspect_ratios=list(ds.aspect_ratios), seed=0)
+    batches, ms = {}, {True: [], False: []}
+    for native in (False, True, True, False):
+        dl = DataLoader(ds, sampler, batch_size=1, prefetch=0,
+                        use_native=native)
+        t0 = time.perf_counter()
+        got = list(dl)
+        ms[native].append((time.perf_counter() - t0) * 1e3 / len(got))
+        if dl.uses_native != native or (dl.native_batches if native
+                                        else dl.python_batches) != len(got):
+            raise RuntimeError(f"loader use_native={native}: "
+                               f"{dl.native_batches} native, "
+                               f"{dl.python_batches} Python batches")
+        dl.close()
+        batches.setdefault(native, got)
+    equal = len(batches[True]) == len(batches[False]) == len(PROMPT_LENS) \
+        and all(a.dtype == b.dtype and np.array_equal(a, b)
+                for bt, bf in zip(batches[True], batches[False])
+                for a, b in zip(bt, bf))
+    row = dict(main_s=main_s, step_s=record["step_s"], launches=counts,
+               traced=traced, trace_mb=trace_mb, timer=timer[0],
+               native_batches=record["native_batches"],
+               loader_ms_per_batch={"pool": ms[True], "python": ms[False]},
+               loader_equal=equal,
+               device_ms_by_category=summary["categories_ms"])
+    log("phase 14a: " + json.dumps(row))
+    report["ft_profiled"] = row
+    if not equal:
+        raise RuntimeError("loader: batches through the pool differ")
+    del record, batches
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_t5_decoder(report):
+    """(b) The umT5-XXL decoder at full width (2 layers, random weights)
+    in fp32 on the card against the same weights on the CPU, then in bf16
+    on the card."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models import t5
+
+    cfg = WAN_CONFIGS["t2v-14B"].t5.replace(num_layers=T5_DEC_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    model = t5.T5Decoder(cfg, dtype=torch.float32, device=DEVICE)
+    model.init_weights(gen)
+    sd = t5.t5_decoder_state_dict(model)
+    cpu = t5.load_t5_decoder_state_dict(
+        t5.T5Decoder(cfg, dtype=torch.float32), sd)
+    rng = np.random.default_rng(14)
+    ids = rng.integers(0, cfg.vocab_size, (2, T5_DEC_LEN))
+    ids[0, -1] = cfg.vocab_size + 7  # clipped to the last entry
+    enc = rng.standard_normal((2, 512, cfg.dim), dtype=np.float32)
+    enc_mask = np.ones((2, 512), np.int64)
+    enc_mask[1, 77:] = 0
+    mask = np.ones((2, T5_DEC_LEN), np.int64)
+    mask[0, 40:] = 0
+    cpu_in = [torch.from_numpy(a) for a in (ids, enc, enc_mask, mask)]
+    dev_in = [a.to(DEVICE) for a in cpu_in]
+    with torch.no_grad():
+        got = model(*dev_in)
+        ms = cuda_ms(lambda: model(*dev_in), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        want = cpu(*cpu_in)
+        cpu_s = time.perf_counter() - t0
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        model16 = t5.load_t5_decoder_state_dict(
+            t5.T5Decoder(cfg, dtype=torch.bfloat16, device=DEVICE), sd)
+        got16 = model16(*dev_in)
+        ms16 = cuda_ms(lambda: model16(*dev_in), iters=5, warmup=1)
+        err16 = float((got16.float() - got).abs().max() / got.abs().max())
+    row = dict(layers=T5_DEC_LAYERS, dim=cfg.dim, heads=cfg.num_heads,
+               ffn=cfg.dim_ffn, decoder_tokens=T5_DEC_LEN,
+               encoder_tokens=512, fp32_ms=ms, cpu_s=cpu_s,
+               fp32_rel_err=err, tol=T5_DEC_REL_TOL, bf16_ms=ms16,
+               bf16_rel_err=err16)
+    log("phase 14b: t5 decoder " + json.dumps(row))
+    report["t5_decoder"] = row
+    if tuple(got.shape) != (2, T5_DEC_LEN, cfg.dim):
+        raise RuntimeError(f"t5 decoder: output shape {tuple(got.shape)}")
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(got16).all())):
+        raise RuntimeError("t5 decoder: non-finite output")
+    if not err <= T5_DEC_REL_TOL:
+        raise RuntimeError(f"t5 decoder: card vs CPU {err:.3e} > "
+                           f"{T5_DEC_REL_TOL}")
+    del model, model16, cpu, sd
+    torch.cuda.empty_cache()
+
+
+def _gradio_stub(registry):
+    """A ``gradio`` whose components do nothing and whose buttons record
+    their callbacks in ``registry`` (gradio is an optional dependency)."""
+    import types
+
+    class Component:
+        def __init__(self, *args, **kwargs):
+            self.label = kwargs.get("label")
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class Button(Component):
+        def click(self, fn, inputs=None, outputs=None):
+            registry.append(dict(fn=fn, inputs=inputs, outputs=outputs))
+
+    gr = types.ModuleType("gradio")
+    for name in ("Blocks", "Row", "Column", "Textbox", "Radio", "Dropdown",
+                 "Slider", "Number", "Video", "Markdown"):
+        setattr(gr, name, Component)
+    gr.Button = Button
+    return gr
+
+
+def _hub_offline():
+    """Refuse to go on unless the Hugging Face hub is offline (main sets
+    HF_HUB_OFFLINE before anything imports it): the rewriter must not try
+    to download."""
+    try:
+        from huggingface_hub import constants
+    except ImportError:
+        return
+    if not constants.HF_HUB_OFFLINE:
+        raise RuntimeError("the Hugging Face hub is not offline")
+
+
+def phase_app(report):
+    """(c) The gradio app (``apps/gradio_t2v.build_app``, gradio stubbed)
+    over 8b's directory: its Generate callback answers two requests
+    (832*480, 17 frames, 4 steps, two seeds), each video equal to
+    ``WanT2V.generate``'s with the same arguments; Prompt Enhance with the
+    local rewriter and no weights gives the prompt back."""
+    import types
+
+    import torch
+
+    from moviigen_tpu_torch.apps import gradio_t2v
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.pipelines.text2video import WanT2V
+
+    ckpt = _ckpt_dir(report, "14c")
+    _hub_offline()
+    registry, videos = [], []
+    keep_gradio = sys.modules.get("gradio")
+    keep_cache = gradio_t2v.cache_video
+
+    def capture(video, save_file=None, **kwargs):
+        videos.append(video)
+        return keep_cache(video, save_file=save_file, **kwargs)
+
+    app_dir = ckpt.parent / "app"  # the app writes example.mp4 to the cwd
+    app_dir.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    sys.modules["gradio"] = _gradio_stub(registry)
+    gradio_t2v.cache_video = capture
+    os.chdir(app_dir)
+    rows = []
+    try:
+        args = types.SimpleNamespace(
+            task=CKPT_TASK, ckpt_dir=str(ckpt), frame_num=APP_FRAMES,
+            device=DEVICE, prompt_extend_method="local_qwen",
+            prompt_extend_model=None)
+        t0 = time.perf_counter()
+        gradio_t2v.build_app(args)
+        init_s = time.perf_counter() - t0
+        enhance, generate = registry
+        if len(generate["inputs"]) != 7 or len(enhance["inputs"]) != 2:
+            raise RuntimeError(f"app: buttons wired with "
+                               f"{len(enhance['inputs'])} and "
+                               f"{len(generate['inputs'])} inputs")
+        for seed in APP_SEEDS:
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = generate["fn"](PROMPT, "832*480", APP_STEPS, 5.0, 5.0,
+                                  seed, "")
+            torch.cuda.synchronize()
+            rows.append(dict(seed=seed, request_s=time.perf_counter() - t0,
+                             launches=fa.launch_counts(), path=path))
+            log("phase 14c: app request " + json.dumps(rows[-1]))
+            if not os.path.getsize(path):
+                raise RuntimeError("app: no video written")
+            # r1's shape batches the CFG pair: one forward a step, 2 sites
+            if rows[-1]["launches"]["launches"] != (APP_STEPS * 2
+                                                    * CKPT_DIT_LAYERS):
+                raise RuntimeError(f"app: launches {rows[-1]['launches']}")
+        t0 = time.perf_counter()
+        enhanced = enhance["fn"](PROMPT, "en")
+        enhance_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        gradio_t2v.cache_video = keep_cache
+        if keep_gradio is None:
+            sys.modules.pop("gradio", None)
+        else:
+            sys.modules["gradio"] = keep_gradio
+    report["app_launches"] = {
+        k: sum(r["launches"][k] for r in rows) for k in fa.COUNTERS}
+    ref = WanT2V(_cut_task(), device=DEVICE, checkpoint_dir=str(ckpt))
+    equal = []
+    for seed, video in zip(APP_SEEDS, videos):
+        _serve_checks("app", video, APP_FRAMES)
+        want = ref.generate(PROMPT, size=(832, 480), frame_num=APP_FRAMES,
+                            shift=5.0, sampling_steps=APP_STEPS,
+                            guide_scale=5.0, n_prompt="", seed=seed)
+        equal.append(bool(np.array_equal(video, want)))
+    row = dict(init_s=init_s, requests=rows, equal=equal,
+               seeds_differ=not np.array_equal(videos[0], videos[1]),
+               enhance_s=enhance_s, enhance_kept_prompt=enhanced == PROMPT)
+    log("phase 14c: " + json.dumps(row))
+    report["app"] = row
+    if not all(equal) or len(equal) != len(APP_SEEDS):
+        raise RuntimeError(f"app: videos equal to WanT2V.generate: {equal}")
+    if not row["seeds_differ"]:
+        raise RuntimeError("app: two seeds gave one video")
+    if enhanced != PROMPT:
+        raise RuntimeError(f"app: Prompt Enhance gave {enhanced!r}")
+    del ref
+    torch.cuda.empty_cache()
+
+
+def phase_cli_prompt_extend(report):
+    """(d) ``cli.generate --use_prompt_extend`` over 8b's directory with
+    each rewriter failing (``local_qwen`` offline with no weights,
+    ``dashscope`` with no SDK): a warning, and the video of the run
+    without the flag (PSNR inf); the latents compared by
+    ``latent_parity_report``."""
+    import logging
+
+    import torch
+
+    from moviigen_tpu_torch.cli import generate
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.pipelines.text2video import WanT2V
+    from moviigen_tpu_torch.utils.metrics import latent_parity_report, psnr
+
+    ckpt = _ckpt_dir(report, "14d")
+    _hub_offline()
+    videos, latents = [], []
+    keep_cache, keep_decode = generate.cache_video, WanT2V.decode_request
+    keep_sdk = sys.modules.get("dashscope")
+
+    def capture(video, save_file=None, **kwargs):
+        videos.append(video)
+        return keep_cache(video, save_file=save_file, **kwargs)
+
+    def decode(self, latent):
+        latents.append(latent[0].float().cpu().numpy())
+        return keep_decode(self, latent)
+
+    argv = ["--task", CKPT_TASK, "--device", DEVICE, "--size", "832*480",
+            "--frame_num", "5", "--sample_steps", "2", "--base_seed", "42",
+            "--prompt", PROMPT, "--ckpt_dir", str(ckpt)]
+    runs = [("none", []),
+            ("local_qwen", ["--use_prompt_extend", "--prompt_extend_method",
+                            "local_qwen"]),
+            ("dashscope", ["--use_prompt_extend", "--prompt_extend_method",
+                           "dashscope", "--prompt_extend_target_lang", "en"])]
+    rows = []
+    generate.cache_video, WanT2V.decode_request = capture, decode
+    sys.modules["dashscope"] = None  # no SDK: and so no request leaves
+    try:
+        for name, flags in runs:
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with captured_logs() as lines:
+                out = generate.main(argv + flags + [
+                    "--save_file", str(ckpt.parent / f"extend_{name}.mp4")])
+            torch.cuda.synchronize()
+            warned = [m for lvl, m in lines if lvl == logging.WARNING
+                      and m.startswith("prompt extension failed")]
+            rows.append(dict(method=name, total_s=time.perf_counter() - t0,
+                             launches=fa.launch_counts(), warned=warned,
+                             prompt_kept=f"prompt: {PROMPT}" in
+                             [m for _, m in lines]))
+            log("phase 14d: " + json.dumps(rows[-1]))
+            if out is None or not os.path.getsize(out):
+                raise RuntimeError(f"cli {name}: no video written")
+            if len(warned) != (1 if flags else 0) or not rows[-1][
+                    "prompt_kept"]:
+                raise RuntimeError(f"cli {name}: warnings {warned}")
+            if rows[-1]["launches"]["launches"] != 2 * 2 * CKPT_DIT_LAYERS:
+                raise RuntimeError(f"cli {name}: launches "
+                                   f"{rows[-1]['launches']}")
+    finally:
+        generate.cache_video, WanT2V.decode_request = keep_cache, keep_decode
+        if keep_sdk is None:
+            sys.modules.pop("dashscope", None)
+        else:
+            sys.modules["dashscope"] = keep_sdk
+    report["extend_launches"] = {
+        k: sum(r["launches"][k] for r in rows[1:]) for k in fa.COUNTERS}
+    _serve_checks("cli extend", videos[0], 5)
+    psnrs = [psnr(v, videos[0]) for v in videos[1:]]
+    parity = [latent_parity_report(lat, latents[0]) for lat in latents[1:]]
+    row = dict(runs=rows, psnr_db=psnrs, latent_parity=parity)
+    log("phase 14d: " + json.dumps(row))
+    report["cli_extend"] = row
+    if len(videos) != 3 or not all(p == float("inf") for p in psnrs):
+        raise RuntimeError(f"cli: the rewriter's failure changed the video "
+                           f"(PSNR {psnrs})")
+
+
+def phase_utils(report):
+    """Phase 14: the host utilities and the apps on the card."""
+    import gc
+
+    t0 = time.perf_counter()
+    for sub in (phase_ft_profiled, phase_t5_decoder, phase_app,
+                phase_cli_prompt_extend):
+        sub(report)
+        gc.collect()
+    _release_ckpt_dir(report, 14)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_qlora_profile(report):
+    """Phase 11a's QLoRA run (``cli.finetune --task t2v-14B --use_lora
+    --quant int8 --gradient_checkpointing``, 32,760 tokens) with
+    ``--profile_steps 2``: device ms by category and the top 40 kernels of
+    its first two steps. Not in the default phases."""
+    import shutil
+
+    import torch
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "lora"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = WAN_CONFIGS[LORA_TASK].model
+    data_json = _latent_dataset(root / "data", TRAIN_LATENT, 2,
+                                cfg.text_dim, 0)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with live_head():
+        record = finetune.main([
+            "--task", LORA_TASK, "--device", DEVICE, "--use_lora",
+            "--quant", "int8", "--gradient_checkpointing",
+            "--lora_rank", str(LORA_RANK), "--lora_alpha", str(LORA_ALPHA),
+            "--learning_rate", str(LORA_LR),
+            "--data_json_path", str(data_json), "--num_latent_t", "21",
+            "--max_train_steps", str(LORA_STEPS), "--profile_steps", "2",
+            "--checkpointing_steps", "1000", "--output_dir",
+            str(root / "out"), "--seed", "0"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    report["qlora_profile_launches"] = counts = fa.launch_counts()
+    tr = record["profile"]
+    traced = traced_flash_launches(tr.kernels)
+    sites = 2 * cfg.num_layers
+    want = dict(stats=4 * sites, fwd=0, dkv=2 * sites, dq=2 * sites)
+    log(f"phase 15: QLoRA {LORA_TASK} int8, {LORA_STEPS} steps, 2 "
+        f"profiled, in {main_s:.1f} s: step_s {record['step_s']}, launches "
+        f"{counts}, traced {traced}")
+    report["qlora_profile"] = kernel_summary(
+        tr.kernels, 15, shape="t2v-14B QLoRA int8, 2 steps, 32,760 tokens, "
+        "per-block remat", step_s=record["step_s"],
+        trace_mb=os.path.getsize(tr.path) / 2**20)
+    if traced != want:
+        raise RuntimeError(f"qlora profiled: the trace holds {traced}, 2 "
+                           f"steps launch {want}")
+    del record
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
           9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora,
-          12: phase_i2v, 13: phase_sp}
+          12: phase_i2v, 13: phase_sp, 14: phase_utils,
+          15: phase_qlora_profile}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13,14",
                     help="comma-separated phases to run (default: all "
-                         "but the profiles, 5, 7 and 9)")
+                         "but the profiles, 5, 7, 9 and 15)")
     args = ap.parse_args(argv)
     phases = sorted({int(p) for p in args.phases.split(",")})
 
+    # the prompt rewriter of phase 14 must find its weights locally or
+    # fail: nothing here may reach the Hugging Face hub
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["TRANSFORMERS_OFFLINE"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -3495,7 +4050,8 @@ def main(argv=None) -> int:
         return 2
     import moviigen_tpu_torch  # noqa: F401  (fails outside the repo)
 
-    report = {"keep_ckpt_dir": 13 in phases}
+    # the phases that use 8b's checkpoint directory after phase 8
+    report = {"ckpt_keepers": {13, 14} & set(phases)}
     t_all = time.perf_counter()
     phase_setup(report)
     for p in phases:

@@ -13,8 +13,12 @@ attention projections of a frozen base (``training/lora.py``), which
 trains on one card); checkpoints then hold the adapters alone, and
 ``--export_safetensors`` writes them in peft layout. It runs on
 ``--device`` (default ``cuda``; ``--device cpu`` for t2v-tiny on the
-CPU). Flags of later slices of the port are accepted by the parser and
-refused with an error naming the ROADMAP item that brings them.
+CPU). The loader reads each batch's ``.npy`` caches through the native
+reader pool (``native/``) when it can be built. ``--profile_steps N``
+traces the first N steps with torch.profiler into
+``<output_dir>/profile`` (a Chrome trace) and logs their phase times.
+``--sp_size`` > 1 (a later slice, ROADMAP item 11b) and the JAX memory
+knobs (not ported, by design) are accepted by the parser and refused.
 
 Examples:
     python -m moviigen_tpu_torch.cli.finetune --task t2v-1.3B \\
@@ -40,13 +44,10 @@ import torch
 
 from ..configs import ATTN_BACKENDS, WAN_CONFIGS
 
-# flag → (value that means "not used", ROADMAP item that brings it)
-LATER_SLICE_FLAGS = {
-    "ffn_bwd_chunk": (None, "the memory knobs (ROADMAP queue 1 item 13)"),
-    "attn_bwd_chunk": (None, "the memory knobs (ROADMAP queue 1 item 13)"),
-    "profile_steps": (0, "utils/profiling.py as torch.profiler (ROADMAP "
-                         "queue 1 item 13)"),
-}
+# the memory knobs of the JAX trainer, for 16 GB TPU chips: accepted by the
+# parser and refused, not ported by design (an 80 GB card has no use for
+# them; ROADMAP, "Not ported, by design")
+MEMORY_KNOBS = ("ffn_bwd_chunk", "attn_bwd_chunk")
 
 
 def _parse_args(argv=None):
@@ -124,11 +125,12 @@ def _validate_args(args) -> None:
         raise NotImplementedError(
             f"task {args.task!r}: i2v fine-tuning is not supported (the JAX "
             "package has no i2v trainer to port)")
-    for flag, (unused, item) in LATER_SLICE_FLAGS.items():
-        if getattr(args, flag) != unused:
+    for flag in MEMORY_KNOBS:
+        if getattr(args, flag) is not None:
             raise NotImplementedError(
-                f"--{flag} is not supported by the PyTorch port yet; it "
-                f"comes with {item}")
+                f"--{flag} is not supported by the PyTorch port: the memory "
+                "knobs are not ported, by design (an 80 GB card has no use "
+                "for them; ROADMAP, 'Not ported, by design')")
     if args.quant and not args.use_lora:
         raise SystemExit("--quant requires --use_lora (the packed base is "
                          "frozen; only adapters train)")
@@ -143,8 +145,10 @@ def _validate_args(args) -> None:
 def main(argv=None) -> dict:
     """Run the fine-tune; returns the run's record: the last step, the
     per-step seconds, losses and grad norms, the final checkpoint's path
-    and the seconds its save took, and the trained model, optimizer and
-    LoRA adapters (None for a full fine-tune)."""
+    and the seconds its save took, the trained model, optimizer and LoRA
+    adapters (None for a full fine-tune), the profiler's ``Trace`` (None
+    without ``--profile_steps``) and the batches the loader read through
+    the native pool and in Python."""
     args = _parse_args(argv)
     _validate_args(args)
     logging.basicConfig(level=logging.INFO,
@@ -164,6 +168,7 @@ def main(argv=None) -> dict:
         SPAwareAspectRatioLengthBucketDistributedSampler)
     from ..training.lora import (attach_lora, init_lora_params,
                                  lora_parameters, lora_state_dict)
+    from ..utils.profiling import PhaseTimer, trace
 
     device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
@@ -215,6 +220,8 @@ def main(argv=None) -> dict:
         world_size=1, sp_size=1, lengths=dataset.lengths,
         aspect_ratios=list(dataset.aspect_ratios), seed=args.seed)
     loader = DataLoader(dataset, sampler, batch_size=args.train_batch_size)
+    logging.info("native reader pool %s", "in use" if loader.uses_native
+                 else "unavailable: batches read in Python")
 
     # ---- rope / step fn (shapes from the first item)
     c, t_lat, h_lat, w_lat = dataset[0][0].shape
@@ -298,10 +305,27 @@ def main(argv=None) -> dict:
     prev_int = signal.signal(signal.SIGINT, handler)
     prev_term = signal.signal(signal.SIGTERM, handler)
 
-    record = {"step_s": [], "loss": [], "grad_norm": []}
+    record = {"step_s": [], "loss": [], "grad_norm": [], "profile": None}
     step_times = deque(maxlen=100)
     step = start_step
     epoch = 0
+    # the first --profile_steps steps under torch.profiler (the JAX CLI's
+    # window: opened before the first step, closed after step N - 1)
+    timer = PhaseTimer(enabled=args.profile_steps > 0)
+    profile_ctx = None
+    if args.profile_steps > 0:
+        profile_ctx = trace(os.path.join(args.output_dir, "profile"),
+                            device=device)
+        record["profile"] = profile_ctx.__enter__()
+
+    def close_profile():
+        nonlocal profile_ctx
+        if profile_ctx is not None:
+            profile_ctx.__exit__(None, None, None)
+            profile_ctx = None
+            logging.info("profiler trace written to %s; phases: %s",
+                         record["profile"].path, timer.report())
+
     try:
         while step < args.max_train_steps:
             sampler.set_epoch(epoch)
@@ -314,8 +338,12 @@ def main(argv=None) -> dict:
                 embeds = embeds * embed_mask[..., None]
                 batch = {"latents": torch.from_numpy(latents).to(device),
                          "context": torch.from_numpy(embeds).to(device)}
-                metrics = train_step(batch)
-                loss = float(metrics["loss"])  # scalar readback = sync point
+                with timer.phase("step"):
+                    metrics = train_step(batch)
+                    # scalar readback = sync point
+                    loss = float(metrics["loss"])
+                if step + 1 >= args.profile_steps:
+                    close_profile()
                 gnorm = float(metrics["grad_norm"])
                 step += 1
                 dt = time.perf_counter() - t0
@@ -343,11 +371,15 @@ def main(argv=None) -> dict:
         record["checkpoint"] = do_save(step, is_final=True)
         record["checkpoint_s"] = time.perf_counter() - t0
     finally:
+        close_profile()
+        loader.close()
         signal.signal(signal.SIGINT, prev_int)
         signal.signal(signal.SIGTERM, prev_term)
         if writer is not None:
             writer.close()
-    record.update(step=step, model=model, optimizer=opt, adapters=adapters)
+    record.update(step=step, model=model, optimizer=opt, adapters=adapters,
+                  native_batches=loader.native_batches,
+                  python_batches=loader.python_batches)
     logging.info("training done at step %d", step)
     return record
 

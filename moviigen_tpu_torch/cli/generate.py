@@ -2,9 +2,7 @@
 
 Counterpart of ``moviigen_tpu/cli/generate.py`` for the t2v, t2i and i2v
 tasks, on one device (``--device``, default ``cuda``) or, under
-``torchrun``, on one card per rank. Flags of later slices of the port are
-accepted by the parser and refused with an error naming the slice that
-brings them.
+``torchrun``, on one card per rank.
 
 Examples:
     python -m moviigen_tpu_torch.cli.generate --task t2v-14B \\
@@ -25,6 +23,11 @@ video; ``--device cpu`` runs the ranks over gloo.
 
 ``--image`` (i2v, required there) is read as the JAX CLI reads it: RGB,
 resized to the request's size, scaled to [-1, 1].
+
+``--use_prompt_extend`` rewrites the prompt with an LLM before it is
+tokenized (``utils/prompt_extend.py``: ``--prompt_extend_method
+local_qwen`` on the request's device, or ``dashscope``); where the
+rewriter fails (no weights, no SDK) it warns and keeps the prompt.
 
 ``--ckpt_dir`` names a checkpoint directory in the reference layout (DiT
 safetensors shards, ``models_t5_umt5-xxl-enc-bf16.pth``,
@@ -58,22 +61,11 @@ EXAMPLE_PROMPT = {
     "i2v-tiny": "a tiny test image-to-video",
 }
 
-# flag → (value that means "not used", slice of the port that brings it)
-LATER_SLICE_FLAGS = {
-    "use_prompt_extend": (False, "the apps-and-utilities slice"),
-}
-
-
 def _validate_args(args):
     """The JAX CLI's checks (ref generate.py:34-60), raising instead of
-    asserting, plus the refusal of later slices' flags."""
+    asserting."""
     if args.task not in WAN_CONFIGS:
         raise ValueError(f"task {args.task!r} is not served by the port")
-    for flag, (unused, slice_name) in LATER_SLICE_FLAGS.items():
-        if getattr(args, flag) != unused:
-            raise NotImplementedError(
-                f"--{flag} is not supported by the PyTorch port yet; it "
-                f"comes with {slice_name}")
     if args.sample_steps is None:
         args.sample_steps = 50
     if args.sample_shift is None:
@@ -137,6 +129,12 @@ def _parse_args(argv=None):
     parser.add_argument("--image", type=str, default=None)
     parser.add_argument("--use_prompt_extend", action="store_true",
                         default=False)
+    parser.add_argument("--prompt_extend_method", type=str,
+                        default="local_qwen",
+                        choices=["dashscope", "local_qwen"])
+    parser.add_argument("--prompt_extend_model", type=str, default=None)
+    parser.add_argument("--prompt_extend_target_lang", type=str,
+                        default="ch", choices=["ch", "en"])
     parser.add_argument("--base_seed", type=int, default=-1)
     parser.add_argument("--sample_solver", type=str, default="unipc",
                         choices=["unipc", "dpm++"])
@@ -193,6 +191,24 @@ def build_mesh(args):
     return mesh, sp_mode
 
 
+def extend_prompt(args, device) -> str:
+    """The prompt rewritten by ``--prompt_extend_method`` (the JAX CLI's
+    ``generate.py:163-175``); on the rewriter's failure a warning and the
+    prompt unchanged."""
+    from ..utils.prompt_extend import build_prompt_expander
+
+    expander = build_prompt_expander(
+        args.prompt_extend_method, model_name=args.prompt_extend_model,
+        task=args.task, device=device)
+    out = expander(args.prompt, tar_lang=args.prompt_extend_target_lang,
+                   seed=args.base_seed)
+    if out.status:
+        logging.info("extended prompt: %s", out.prompt)
+        return out.prompt
+    logging.warning("prompt extension failed: %s", out.message)
+    return args.prompt
+
+
 def generate(args) -> Optional[str]:
     """Run one request; returns the path written, or None on a rank that
     does not write (under a mesh, every rank but 0). Initializes
@@ -232,9 +248,14 @@ def _generate(args) -> Optional[str]:
         writer = dist.get_rank() == 0
     else:
         writer = True
+    device = distributed.local_device(args.device)
+    # Under a mesh the pipeline takes rank 0's token ids on every rank, so
+    # only rank 0 rewrites the prompt: a rewrite cannot split the ranks.
+    if args.use_prompt_extend and writer:
+        args.prompt = extend_prompt(args, device)
     logging.info("prompt: %s", args.prompt)
     pipe_kw = dict(config=cfg, residual_dtype=args.residual_dtype,
-                   device=distributed.local_device(args.device),
+                   device=device,
                    checkpoint_dir=args.ckpt_dir, quant=args.quant,
                    mesh=mesh, sp_mode=sp_mode)
     gen_kw = dict(size=size, frame_num=args.frame_num,

@@ -4,6 +4,7 @@ loader and export in the reference layout (both directions through the
 JAX converters), and the ``checkpoint-step_N`` save and restore."""
 
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,15 @@ CFG = WAN_CONFIGS["t2v-tiny"].model
 JCFG = JAX_CONFIGS["t2v-tiny"].model
 DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int32,
           torch.int64]
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The fine-tune CLI logs to TensorBoard when it is installed, whose
+    import pulls in TensorFlow where that is installed (seconds a process);
+    no test of this file reads those logs (tests/test_torch_training.py
+    runs the CLI with them)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def _tensors(seed=0):

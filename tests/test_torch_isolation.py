@@ -36,7 +36,9 @@ def test_importing_the_port_loads_no_jax():
                 "cli.preprocess", "cli.preprocess_stages",
                 "cli.video_tools", "training.lora", "training.ot",
                 "cli.valid_training", "models.clip", "ops.resize",
-                "pipelines.image2video"):
+                "pipelines.image2video", "utils.profiling", "utils.metrics",
+                "native", "native.loader", "utils.prompt_extend",
+                "utils.qwen_vl", "apps.gradio_t2v"):
         assert f"moviigen_tpu_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

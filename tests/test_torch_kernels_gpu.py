@@ -903,3 +903,35 @@ def test_thread_ranks_run_on_the_callers_stream(cuda):
     torch.cuda.synchronize()
     assert all(st == side for st in streams)
     assert all(torch.equal(o, want) for o in outs)
+
+
+def test_t5_decoder_on_cuda_matches_the_cpu(cuda):
+    """The umT5 decoder (plain matmul/softmax, no kernel) on the card in
+    fp32 with TF32 off against the same weights on the CPU, with an
+    encoder mask and a decoder mask: within 1e-4 of the output's largest
+    value (fp32 sums in another order)."""
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models import t5
+
+    cfg = WAN_CONFIGS["t2v-14B"].t5.replace(num_layers=2, vocab_size=1024)
+    model = t5.T5Decoder(cfg, dtype=torch.float32, device="cuda")
+    model.init_weights(cuda)
+    cpu = t5.load_t5_decoder_state_dict(
+        t5.T5Decoder(cfg, dtype=torch.float32),
+        t5.t5_decoder_state_dict(model))
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    enc = torch.randn(2, 77, cfg.dim, generator=gen)
+    enc_mask = torch.ones(2, 77, dtype=torch.long)
+    enc_mask[1, 30:] = 0
+    mask = torch.ones(2, 40, dtype=torch.long)
+    mask[0, 25:] = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = model(ids.cuda(), enc.cuda(), enc_mask.cuda(), mask.cuda())
+            want = cpu(ids, enc, enc_mask, mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _close(got.cpu(), want, tol=1e-4)

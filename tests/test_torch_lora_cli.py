@@ -4,6 +4,7 @@ t2v-tiny: the peft-layout export, ``cli.finetune --use_lora`` (and
 Adapters and bases come from tests/test_torch_lora.py's helpers."""
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -20,8 +21,23 @@ from test_torch_lora import ALPHA, CFG, RANK, base_pair, jax_adapters
 from test_torch_training import tiny_dataset  # noqa: F401
 
 
-# ------------------------------------------------------------ peft export
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The fine-tune CLI logs to TensorBoard when it is installed, whose
+    import pulls in TensorFlow where that is installed (seconds a process);
+    no test of this file reads those logs (tests/test_torch_training.py
+    runs the CLI with them). The watcher's pipelines take the hash
+    tokenizer without first trying ``transformers`` (the tests have no
+    tokenizer assets, so it is the same tokenizer; that import pulls in
+    TensorFlow as well)."""
+    from moviigen_tpu_torch.models import tokenizer
 
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(tokenizer, "_huggingface_or_none",
+                        lambda **kwargs: None)
+
+
+# ------------------------------------------------------------ peft export
 
 def _safetensors_numpy(path):
     from safetensors.numpy import load_file as st_load

@@ -85,20 +85,15 @@ def test_cli_writes_a_file(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--ring_size", "2"],
                                   ["--ulysses_size", "2"],
-                                  ["--use_prompt_extend"],
                                   ["--ulysses_size", "2", "--ring_size", "2"]])
 def test_cli_refuses_later_slice_flags(flag):
-    """``--use_prompt_extend`` comes with a later slice of the port. The
-    sequence-parallel flags follow the JAX CLI's rule: sp = U·R must
-    divide the world size, here one process (the ranks come from
-    torchrun; ``test_torch_parallel_dist.py`` runs them)."""
+    """The sequence-parallel flags follow the JAX CLI's rule: sp = U·R
+    must divide the world size, here one process (the ranks come from
+    torchrun; ``test_torch_parallel_dist.py`` runs them).
+    (``--use_prompt_extend`` is ported: tests/test_torch_apps.py.)"""
     argv = ["--task", "t2v-tiny", "--device", "cpu", *flag]
-    if flag == ["--use_prompt_extend"]:
-        with pytest.raises(NotImplementedError, match="slice"):
-            cli.main(argv)
-    else:
-        with pytest.raises(ValueError, match="must divide the world size"):
-            cli.main(argv)
+    with pytest.raises(ValueError, match="must divide the world size"):
+        cli.main(argv)
 
 
 def test_no_cuda_device_raises_unless_cpu_is_asked(monkeypatch):

@@ -12,6 +12,7 @@ agree within one process)."""
 import json
 import os
 import signal
+import sys
 
 import numpy as np
 import pytest
@@ -33,6 +34,15 @@ CROP = ["--num_frames", "9", "--train_fps", "16", "--max_height", "36",
         "--max_width", "64", "--drop_short_ratio", "0.0",
         "--video_length_tolerance_range", "5.0", "--crop_height", "32",
         "--crop_width", "48"]
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The fine-tune CLI logs to TensorBoard when it is installed, whose
+    import pulls in TensorFlow where that is installed (seconds a process);
+    no test of this file reads those logs (tests/test_torch_training.py
+    runs the CLI with them)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def _raw_dataset(root):
