@@ -100,7 +100,19 @@ Phases:
     Enhance offline giving the prompt back; (d) ``cli.generate
     --use_prompt_extend`` with each rewriter failing, the video unchanged;
 15. (only when asked: ``--phases 15``) 11a's QLoRA run with
-    ``--profile_steps 2``: device ms by category and the top 40 kernels.
+    ``--profile_steps 2``: device ms by category and the top 40 kernels;
+16. sequence-parallel training on the one card, the ranks as threads:
+    (a) the ring's pair kernels (stats forward, dKV, dQ) at 32,760 tokens
+    cut in two, at 12 and 40 heads, with the global stats of the ring's
+    merged forward and an empty key shard, against their plain twins,
+    their sums against the one-shot backward, timed beside their bounds
+    and SDPA's forward + backward; (b) cell st1: one t2v-1.3B train step
+    at full width and depth and 32,760 tokens in Ulysses sp 2, ring sp 2
+    and USP 2 × 2 (block weights as shards gathered per block, remat)
+    against the one-process step, launches counted, seconds and peak GiB;
+    (c) ``cli.finetune --sp_size 1`` over NCCL at world size 1, 2 steps,
+    its mesh checkpoint read back; (d) the 14B QLoRA step (int8 base,
+    depth cut) in Ulysses sp 2 against one process, the base bit-equal.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -812,6 +824,23 @@ def _sp_launches(report, key):
             for name, row in modes.items()}
 
 
+def _spt_launches(report, key):
+    """A training kernel's launches in phase 16's SP train steps: each
+    mode's timed st1 step (16b), the 2-step ``cli.finetune --sp_size 1``
+    run (16c) and the 14B QLoRA step (16d)."""
+    modes = {k: v for k, v in report.get("sp_train", {}).items()
+             if k != "one_process"}
+    out = {f"sp train st1 {name} (phase 16b)": row["launches"].get(key, 0)
+           for name, row in modes.items()}
+    if "sp_train_cli" in report:
+        out["finetune --sp_size 1, 2 steps (phase 16c)"] = \
+            report["sp_train_cli"]["launches"].get(key, 0)
+    if "sp_train_qlora" in report:
+        out["14B QLoRA sp 2 (phase 16d)"] = \
+            report["sp_train_qlora"]["launches"].get(key, 0)
+    return out
+
+
 def kernels_line(report):
     cases = report["flash_cases"] + report.get("sp_kernels", {}).get("fwd",
                                                                      [])
@@ -946,6 +975,15 @@ def kernels_line(report):
     bwd = [c for c in train if "kernel" not in c]
     if "sp_kernels" in report:  # 13b: the ring groups of the SP modes
         stats = stats + report["sp_kernels"]["stats"]
+    for c in report.get("sp_train_pairs", []):  # 16a: the ring's pairs
+        stats.append(dict(
+            case=c["case"], kernel="stats", N=c["N"],
+            max_abs_err=c["stats_max_abs_err"], rel_err=c["stats_rel_err"],
+            ms=c["stats_ms"], plain_ms=c["stats_plain_ms"],
+            bound_ms=c["stats_bound_ms"], bound_by=c["stats_bound_by"],
+            library_ms=c["stats_library_ms"], library=c["stats_library"],
+            before_redesign_ms=None))
+        bwd.append(c)
     # self-attention at 32,760 tokens: the 1.3B row (N = 12) when phase 2
     # ran, else the 14B one (N = 40)
     s, bmain = stats[0], bwd[0]
@@ -956,7 +994,8 @@ def kernels_line(report):
         "replaces": "moviigen_tpu/ops/flash_attention.py:105",
         "launches": counts.get("stats_launches", 0),
         "launches_by_path": {**by_path("stats_launches"),
-                             **_sp_launches(report, "stats_launches")},
+                             **_sp_launches(report, "stats_launches"),
+                             **_spt_launches(report, "stats_launches")},
         "max_abs_err": max(c["max_abs_err"] for c in stats),
         "ms": s["ms"], "before_redesign_ms": s["before_redesign_ms"],
         "plain_ms": s["plain_ms"],
@@ -972,7 +1011,9 @@ def kernels_line(report):
             "source": "moviigen_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"moviigen_tpu/ops/flash_attention.py:{line}",
             "launches": counts.get(f"{key}_launches", 0),
-            "launches_by_path": by_path(f"{key}_launches"),
+            "launches_by_path": {
+                **by_path(f"{key}_launches"),
+                **_spt_launches(report, f"{key}_launches")},
             "max_abs_err": max(c["max_abs_err"][g] for c in bwd
                                for g in grads),
             "ms": bmain[f"{key}_ms"], "plain_ms": bmain["plain_ms"],
@@ -1470,7 +1511,7 @@ def phase_trainer(report):
     from moviigen_tpu_torch.ops import flash_attention as fa
     from moviigen_tpu_torch.ops import int8_gemm as ig
     from moviigen_tpu_torch.training.checkpoint import OPT_FILE, PARAMS_FILE
-    from moviigen_tpu_torch.utils.safetensors import load_file
+    from moviigen_tpu_torch.utils.safetensors import load_file, read_metadata
 
     root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "train"
     shutil.rmtree(root, ignore_errors=True)
@@ -1552,20 +1593,21 @@ def phase_trainer(report):
     ckpt_gib = sum(f.stat().st_size for f in path.iterdir()) / 2**30
     t0 = time.perf_counter()
     saved = load_file(str(path / PARAMS_FILE))
-    saved_opt = torch.load(path / OPT_FILE, map_location="cpu",
-                           weights_only=True)
+    saved_opt = load_file(str(path / OPT_FILE))
     read_s = time.perf_counter() - t0
     for name, p in model.named_parameters():
         if not torch.equal(saved[name], p.detach().cpu()):
             raise RuntimeError(f"checkpoint: {name} read back differs")
     state = opt.state_dict()
-    if (saved_opt["count"], saved_opt["mini_step"]) != (state["count"],
-                                                        state["mini_step"]):
+    counts = read_metadata(str(path / OPT_FILE))
+    if (int(counts["count"]), int(counts["mini_step"])) != (
+            state["count"], state["mini_step"]):
         raise RuntimeError("checkpoint: optimizer counts read back differ")
-    for key in ("m", "v"):
-        for a, b in zip(saved_opt[key], state[key]):
-            if not torch.equal(a, b.cpu()):
-                raise RuntimeError(f"checkpoint: optimizer {key} differs")
+    for key in ("m", "v"):  # the optimizer's params are the model's
+        for (name, _), b in zip(model.named_parameters(), state[key]):
+            if not torch.equal(saved_opt[f"{key}/{name}"], b.cpu()):
+                raise RuntimeError(f"checkpoint: optimizer {key} of {name} "
+                                   "differs")
     row = dict(task=TRAIN_TASK, layers=cfg.num_layers, tokens=32760,
                params=n_params, steps=TRAIN_STEPS, step_s=record["step_s"],
                step_s_median_2_3=statistics.median(record["step_s"][1:]),
@@ -2233,7 +2275,7 @@ def phase_qlora(report):
     from moviigen_tpu_torch.training import checkpoint as ck
     from moviigen_tpu_torch.training.lora import (init_lora_params,
                                                   lora_state_dict)
-    from moviigen_tpu_torch.utils.safetensors import load_file
+    from moviigen_tpu_torch.utils.safetensors import load_file, read_metadata
 
     root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "lora"
     shutil.rmtree(root, ignore_errors=True)
@@ -2316,12 +2358,13 @@ def phase_qlora(report):
             torch.equal(saved[k], v.detach().cpu()) for k, v in
             named.items()):
         raise RuntimeError("qlora: the adapters read back differ")
-    state = torch.load(path / ck.OPT_FILE, map_location="cpu",
-                       weights_only=True)
+    state = load_file(str(path / ck.OPT_FILE))
     mine = opt.state_dict()
-    if state["count"] != LORA_STEPS or not all(
-            torch.equal(a, b.cpu()) for key in ("m", "v")
-            for a, b in zip(state[key], mine[key])):
+    place = {id(p): i for i, p in enumerate(opt.params)}
+    if int(read_metadata(str(path / ck.OPT_FILE))["count"]) != LORA_STEPS \
+            or not all(torch.equal(state[f"{key}/{name}"],
+                                   mine[key][place[id(t)]].cpu())
+                       for key in ("m", "v") for name, t in named.items()):
         raise RuntimeError("qlora: the AdamW state read back differs")
     meta = ck.read_meta(str(path))
     if {k: meta.get(k) for k in ("lora", "quant", "lora_rank", "lora_alpha",
@@ -4022,17 +4065,592 @@ def phase_qlora_profile(report):
     torch.cuda.empty_cache()
 
 
+
+# --------------------------------------- sequence-parallel training
+
+# Phase 16: training under sequence parallelism on the one card, the
+# mesh's ranks as threads of this process (NCCL puts no two ranks on one
+# GPU). 16a: the ring's pair kernels at the ft shape cut in two (32,760
+# tokens, sp 2), at the 1.3B's 12 heads and the 14B's 40; B = 2 with batch
+# entry 1's keys ending at the cut, so its second key shard is empty.
+SPT_TOKENS, SPT_SHARDS = 32760, 2
+SPT_PAIR_HEADS = (TRAIN_HEADS, HEADS)
+# 16b, cell st1: one t2v-1.3B train step at full width and depth and
+# 32,760 tokens (ft's shape), per-block remat, the block weights as shards
+# gathered per block; (name, sp_mode, data, ring, seq).
+SPT_CASES = [
+    ("ulysses_sp2", "ulysses", 1, 1, 2),
+    ("ring_sp2", "ring", 1, 1, 2),
+    ("usp_r2_u2", "usp", 1, 2, 2),
+]
+# Every gradient of the SP step against the one-process step's, norm-
+# relative: both bf16 compute; Ulysses' attention is the same work items
+# as the one process's, the ring rounds each pair's partial to bf16 before
+# the fp32 merge and runs its backward per pair, each rank's dK of the
+# cross-attention covers its own queries and is rounded to bf16 before the
+# ranks' sum, and the gradients' sums over ranks run in other orders. §2's
+# gradient gate (GRAD_REL_TOL) bounds that; a gradient scaled by the world
+# size, or one shard's missing, is off by O(1). A linear's weight and bias
+# are held as one tensor (the bias is the weight of a constant input): the
+# key biases' gradients alone are near-cancellations (the softmax does not
+# change when every key moves by the same vector; only the qk-norm leaves
+# them a small gradient), so bf16 rounding of their terms reads as 1-3e-2
+# of their own norm already at t2v-tiny on the CPU. The loss: as the SP
+# forward's prediction (SP_RING_REL_TOL).
+SPT_GRAD_REL_TOL = GRAD_REL_TOL
+SPT_LOSS_REL_TOL = SP_RING_REL_TOL
+# 16c: cli.finetune --sp_size 1 over NCCL at world size 1, 2 steps at 7,800
+# tokens (the checkpoint is the full 1.3B's either way); 16d: the 14B QLoRA
+# step at full width, depth cut to SPT_QLORA_LAYERS, Ulysses sp 2.
+SPT_CLI_LATENT, SPT_CLI_STEPS = (16, 5, 60, 104), 2
+SPT_QLORA_LAYERS = 4
+
+
+class _GradsOf:
+    """An optimizer stand-in for ``make_train_step`` that keeps the
+    gradients of ``named``'s tensors (by name) and updates nothing; its
+    clip norm is ``make_optimizer``'s (the mesh's with ``comm``)."""
+
+    def __init__(self, named, comm=None):
+        from moviigen_tpu_torch.training.train_step import (
+            global_norm, mesh_global_norm)
+
+        self.names = list(named)
+        self.params = list(named.values())
+        self.grads = None
+        self.norm_fn = global_norm if comm is None else \
+            mesh_global_norm(comm, self.params)
+
+    def step(self, grads, norm=None):
+        self.grads = dict(zip(self.names, grads))
+        return True
+
+
+def _sp_pair_case(n, gen):
+    """The ring's pair kernels at ``n`` heads: for each query shard the
+    global stats from the ring's own forward (stats kernel per key shard,
+    ``ring_merge``), then each pair's dKV and dQ with those stats and the
+    held shard's key count, against the plain twin on the same inputs; an
+    empty pair exactly zero; the pairs' sums against the one-shot backward
+    kernels over the whole sequence. One dense pair's kernels timed, with
+    the plain twins, the bounds, SDPA's forward (the stats kernel's
+    library time) and SDPA's forward + backward (the backward kernels')."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import ring
+
+    b, l, shards = 2, SPT_TOKENS, SPT_SHARDS
+    s = l // shards
+    name = f"t_ring_pair_B{b}_L{s}x{shards}_N{n}"
+    q, k, v, do = (torch.randn(b, l, n, HEAD_DIM, generator=gen,
+                               device=DEVICE, dtype=torch.bfloat16)
+                   for _ in range(4))
+    k_lens = torch.tensor([l, l - s], dtype=torch.int32, device=DEVICE)
+    cut = [[x[:, i * s:(i + 1) * s].contiguous() for i in range(shards)]
+           for x in (q, k, v, do)]
+    errs, stats_errs, sums = {}, [], {"dq": {}, "dk": {}, "dv": {}}
+    stats = []
+    for i in range(shards):
+        acc = (torch.zeros((b, s, n, HEAD_DIM), device=DEVICE),
+               torch.full((b, s, n), -1e30, device=DEVICE),
+               torch.zeros((b, s, n), device=DEVICE))
+        for j in range(shards):
+            kl = ring._local_klens(k_lens, j, s)
+            part = fa.flash_attention_with_stats(cut[0][i], cut[1][j],
+                                                 cut[2][j], kl)
+            plain = fa.flash_attention_stats_plain(cut[0][i], cut[1][j],
+                                                   cut[2][j], kl)
+            stats_errs.append(_check(f"{name} pair ({i}, {j})", "out",
+                                     part[0], plain[0], FLASH_REL_TOL))
+            acc = ring.ring_merge(*acc, *part)
+        o, m, l_ = acc
+        stats.append((o.to(torch.bfloat16),
+                      (m * fa.LOG2E).transpose(1, 2).contiguous(),
+                      l_.transpose(1, 2).contiguous()))
+    for i in range(shards):
+        o, m2, l2 = stats[i]
+        for j in range(shards):
+            kl = ring._local_klens(k_lens, j, s)
+            args = (cut[0][i], cut[1][j], cut[2][j], kl, o, m2, l2,
+                    cut[3][i])
+            got = fa.flash_bwd_cuda(*args)
+            want = fa.flash_bwd_plain(*args)
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                errs[f"({i}, {j}) {what}"] = _check(
+                    f"{name} pair ({i}, {j})", what, g, w, GRAD_REL_TOL)
+                if j == shards - 1 and (bool(g[1].any()) or bool(
+                        w[1].any())):
+                    raise RuntimeError(f"{name} pair ({i}, {j}): {what} of "
+                                       "the empty key shard is not zero")
+            for what, g, key in (("dq", got[0], i), ("dk", got[1], j),
+                                 ("dv", got[2], j)):
+                sums[what][key] = sums[what].get(key, 0.0) + g.float()
+            del got, want
+    whole = fa.flash_bwd_cuda(
+        q, k, v, k_lens, torch.cat([st[0] for st in stats], dim=1),
+        torch.cat([st[1] for st in stats], dim=2).contiguous(),
+        torch.cat([st[2] for st in stats], dim=2).contiguous(), do)
+    sum_errs = {what: _check(name, f"pairs' {what} vs one-shot",
+                             torch.cat([sums[what][i] for i in
+                                        range(shards)], dim=1),
+                             w.float(), GRAD_REL_TOL)[1]
+                for what, w in zip(("dq", "dk", "dv"), whole)}
+    del whole, sums
+    # the dense pair (0, 0) timed
+    q0, k0, v0, do0 = cut[0][0], cut[1][0], cut[2][0], cut[3][0]
+    o0, m0, l0 = stats[0]
+    ops = fa.bwd_operands(q0, k0, v0, None, o0, m0, l0, do0)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q0, k0, v0))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qt, kt, vt)
+        return torch.autograd.grad(out, (qt, kt, vt), do0.transpose(1, 2))
+
+    (fwd_b, fwd_by), (dkv_b, dkv_by), (dq_b, dq_by) = train_bounds(
+        b, s, s, [s] * b, n=n)
+    row = dict(
+        case=name, B=b, Lq=s, Lk=s, N=n, shards=shards,
+        k_lens=k_lens.tolist(), empty_pair=[shards - 1, "batch 1"],
+        max_abs_err={w: max(e[0] for key, e in errs.items()
+                            if key.endswith(w)) for w in ("dq", "dk", "dv")},
+        rel_err={w: max(e[1] for key, e in errs.items()
+                        if key.endswith(w)) for w in ("dq", "dk", "dv")},
+        stats_max_abs_err=max(e[0] for e in stats_errs),
+        stats_rel_err=max(e[1] for e in stats_errs),
+        pairs_vs_one_shot_rel_err=sum_errs,
+        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
+        dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
+        dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(ops)),
+        stats_plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(
+            q0, k0, v0), iters=3, warmup=1),
+        plain_ms=cuda_ms(lambda: fa.flash_bwd_plain(
+            q0, k0, v0, None, o0, m0, l0, do0), iters=3, warmup=1),
+        stats_library_ms=cuda_ms(sdpa_fwd), stats_library="SDPA forward",
+        library_ms=cuda_ms(sdpa_fwd_bwd, iters=5),
+        library="SDPA forward + backward (dq, dk, dv)",
+        stats_bound_ms=fwd_b, stats_bound_by=fwd_by,
+        dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
+        dq_bound_ms=dq_b, dq_bound_by=dq_by,
+        dkv_query_splits=fa.dkv_query_splits(b, n, s, s))
+    del q, k, v, do, cut, stats, ops, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sp_train_pairs(report):
+    """(a) The ring's pair kernels at the SP training shapes
+    (``_sp_pair_case``, at 12 and 40 heads). Launches here are
+    comparisons, not the path's."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    rows = []
+    for n in SPT_PAIR_HEADS:
+        rows.append(_sp_pair_case(n, gen))
+        log("phase 16a: " + json.dumps(rows[-1]))
+    report["sp_train_pairs"] = rows
+
+
+def _grad_errs(got, want):
+    """(norm-relative error of each gradient, a linear's weight and bias
+    taken as one tensor under the linear's name; the same of each tensor
+    alone)."""
+    import torch
+
+    alone, errs = {}, {}
+    for name, w in want.items():
+        alone[name] = float((got[name].float() - w.float()).norm()
+                            / w.float().norm().clamp_min(1e-30))
+        owner, _, leaf = name.rpartition(".")
+        if leaf == "bias" and f"{owner}.weight" in want:
+            continue
+        parts = [name] + ([f"{owner}.bias"] if leaf == "weight"
+                          and f"{owner}.bias" in want else [])
+        g = torch.cat([got[p].float().reshape(-1) for p in parts])
+        ref = torch.cat([want[p].float().reshape(-1) for p in parts])
+        key = owner if len(parts) > 1 else name
+        errs[key] = float((g - ref).norm() / ref.norm().clamp_min(1e-30))
+    return errs, alone
+
+
+def _spt_expected(mode, ring, sp, layers):
+    """Launches of one SP train step with per-block remat over all ranks:
+    per rank and block, the cross-attention's ``FlashAttention`` (the
+    stats forward, again in the recompute, one dKV, one dQ) and the self-
+    attention's: the same over N/sp heads (ulysses), or per key shard
+    that comes round the ring one stats launch in the forward and one in
+    the recompute and one dKV and one dQ in the backward (ring: sp key
+    shards; usp: R)."""
+    shards = {"ulysses": 1, "ring": sp, "usp": ring}[mode]
+    per = layers * sp
+    return dict(stats_launches=per * (2 + 2 * shards),
+                dkv_launches=per * (1 + shards),
+                dq_launches=per * (1 + shards))
+
+
+def phase_sp_train_step(report):
+    """(b) Cell st1: one t2v-1.3B train step at full width and depth and
+    32,760 tokens, the one-process step, then each mode of ``SPT_CASES``
+    over thread ranks from the same weights, noise and u (block weights
+    as shards gathered per block, per-block remat; one untimed step, then
+    one timed with its launches counted and the card's peak memory): the
+    loss and every gradient (the shards gathered) against the one-process
+    step's."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import sharding
+    from moviigen_tpu_torch.parallel.comm import (own_trained, run_ranks,
+                                                  thread_mesh)
+    from moviigen_tpu_torch.training import TrainConfig, make_train_step
+
+    cfg = WAN_CONFIGS[TRAIN_TASK].model
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    model, rope = _train_inputs(cfg, gen)
+    batch = {"latents": torch.randn(1, *TRAIN_LATENT, generator=gen,
+                                    device=DEVICE),
+             "context": torch.randn(1, cfg.text_len, cfg.text_dim,
+                                    generator=gen, device=DEVICE)}
+    batch["context"][:, PROMPT_LENS[2]:] = 0.0
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=DEVICE)
+    u = torch.tensor([0.37], device=DEVICE)
+    tc = TrainConfig(remat=True)
+    one = _GradsOf(dict(model.named_parameters()))
+    step = make_train_step(model, tc, rope, one)
+    step(batch, noise=noise, u=u)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    want_m = step(batch, noise=noise, u=u)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    rows = {"one_process": dict(
+        s=one_s, loss=float(want_m["loss"]),
+        grad_norm=float(want_m["grad_norm"]), launches=fa.launch_counts(),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)}
+    log("phase 16b: one process " + json.dumps(rows["one_process"]))
+    want = one.grads
+    for name, mode, data, ring_n, seq in SPT_CASES:
+        comms = thread_mesh(data=data, ring=ring_n, seq=seq)
+        ranks = [None] * len(comms)
+
+        def build(comm):
+            m = own_trained(sharding.shard_params(
+                model, sharding.dit_param_specs(model), comm,
+                sharding.shard_axis(comm)))
+            cap = _GradsOf(dict(m.named_parameters()), comm)
+            ranks[comm.rank] = (make_train_step(m, tc, rope, cap, comm=comm,
+                                                sp_mode=mode), cap,
+                                sharding.sharded_tensors(m))
+            return ranks[comm.rank][0](batch, noise=noise, u=u)
+
+        run_ranks(build, comms)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = run_ranks(lambda c: ranks[c.rank][0](batch, noise=noise,
+                                                       u=u), comms)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sp = ring_n * seq
+        expected = dict.fromkeys(counts, 0)
+        expected.update(_spt_expected(mode, ring_n, sp, cfg.num_layers))
+        dims = ranks[0][2]
+        got, zero = {}, []
+        for pname, w in want.items():
+            if pname in dims:
+                got[pname] = torch.cat(
+                    [ranks[r][1].grads[pname] for r in range(len(comms))
+                     if comms[r].coords["data"] == 0], dim=dims[pname])
+            else:
+                got[pname] = ranks[0][1].grads[pname]
+            if not bool(w.abs().max() > 0):
+                zero.append(pname)
+        errs, alone = _grad_errs(got, want)
+        losses = [float(m["loss"]) for m in metrics]
+        loss_rel = abs(losses[0] - rows["one_process"]["loss"]) \
+            / abs(rows["one_process"]["loss"])
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])
+        rows[name] = dict(
+            sp_mode=mode, data=data, ring=ring_n, seq=seq, s=secs,
+            one_process_s=one_s, loss=losses[0], loss_rel_err=loss_rel,
+            grad_norm=float(metrics[0]["grad_norm"]), tensors=len(errs),
+            max_grad_rel_err=worst[0][1], worst=dict(worst[:4]),
+            median_grad_rel_err=statistics.median(errs.values()),
+            worst_alone=dict(sorted(alone.items(),
+                                    key=lambda kv: -kv[1])[:4]),
+            launches=counts, peak_gib=peak,
+            sharded_tensors=len(dims))
+        log(f"phase 16b: {name} " + json.dumps(rows[name]))
+        if len(set(losses)) != 1:
+            raise RuntimeError(f"sp train {name}: the ranks' losses differ: "
+                               f"{losses}")
+        if zero:
+            raise RuntimeError(f"sp train {name}: all-zero one-process "
+                               f"gradients {zero[:4]}")
+        if not loss_rel <= SPT_LOSS_REL_TOL:
+            raise RuntimeError(f"sp train {name}: loss {losses[0]} vs "
+                               f"{rows['one_process']['loss']}")
+        bad = {p: e for p, e in errs.items() if not e <= SPT_GRAD_REL_TOL}
+        if bad:
+            raise RuntimeError(f"sp train {name}: gradients past "
+                               f"{SPT_GRAD_REL_TOL} (norm-relative): "
+                               f"{dict(list(bad.items())[:8])}")
+        if counts != expected:
+            raise RuntimeError(f"sp train {name}: launches {counts}, "
+                               f"expected {expected}")
+        del ranks, metrics
+        torch.cuda.empty_cache()
+    report["sp_train"] = rows
+    del model, one, want
+    torch.cuda.empty_cache()
+
+
+def phase_sp_train_cli(report):
+    """(c) ``cli.finetune --sp_size 1`` in this process under torchrun's
+    variables for one rank: NCCL at world size 1, a (1, 1) mesh, so the
+    trainer runs its mesh path (the SP forward with one-rank collectives,
+    the mesh checkpoint streamed in the one-process layout); t2v-1.3B at
+    full width and depth, 2 steps at 7,800 tokens; the final checkpoint
+    read back against the trained parameters and optimizer state."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from moviigen_tpu_torch.cli import finetune
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import distributed
+    from moviigen_tpu_torch.parallel.comm import DistComm
+    from moviigen_tpu_torch.training.checkpoint import OPT_FILE, PARAMS_FILE
+    from moviigen_tpu_torch.utils.safetensors import (load_tensor,
+                                                      read_metadata)
+
+    root = pathlib.Path(__file__).resolve().parent / "_smoke_out" / "sp_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = WAN_CONFIGS[TRAIN_TASK].model
+    data_json = _latent_dataset(root / "data", SPT_CLI_LATENT, 2,
+                                cfg.text_dim, 0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not distributed.maybe_initialize_distributed(strict=True):
+            raise RuntimeError("sp cli: torch.distributed did not start")
+        backend, world = dist.get_backend(), dist.get_world_size()
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with live_head():
+            record = finetune.main([
+                "--task", TRAIN_TASK, "--device", DEVICE, "--sp_size", "1",
+                "--data_json_path", str(data_json), "--num_latent_t",
+                str(SPT_CLI_LATENT[1]), "--gradient_checkpointing",
+                "--max_train_steps", str(SPT_CLI_STEPS),
+                "--checkpointing_steps", "1000", "--output_dir",
+                str(root / "out"), "--seed", "0"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = fa.launch_counts()
+    sites = 2 * cfg.num_layers
+    want = dict(dict.fromkeys(fa.COUNTERS, 0),
+                stats_launches=2 * sites * SPT_CLI_STEPS,
+                dkv_launches=sites * SPT_CLI_STEPS,
+                dq_launches=sites * SPT_CLI_STEPS)
+    path = pathlib.Path(record["checkpoint"])
+    t0 = time.perf_counter()
+    model, opt = record["model"], record["optimizer"]
+    state = opt.state_dict()
+    index = {id(p): i for i, p in enumerate(opt.params)}
+    for name, p in model.named_parameters():
+        if not torch.equal(load_tensor(str(path / PARAMS_FILE), name),
+                           p.detach().cpu()):
+            raise RuntimeError(f"sp cli: checkpoint {name} differs")
+        for key in ("m", "v"):
+            if not torch.equal(load_tensor(str(path / OPT_FILE),
+                                           f"{key}/{name}"),
+                               state[key][index[id(p)]].cpu()):
+                raise RuntimeError(f"sp cli: checkpoint {key}/{name} "
+                                   "differs")
+    read_s = time.perf_counter() - t0
+    meta = read_metadata(str(path / OPT_FILE))
+    row = dict(backend=backend, world_size=world,
+               mesh=dict(record["comm"].shape), main_s=main_s,
+               step_s=record["step_s"], loss=record["loss"],
+               launches=counts, checkpoint_save_s=record["checkpoint_s"],
+               checkpoint_read_s=read_s,
+               checkpoint_gib=sum(f.stat().st_size for f in path.iterdir())
+               / 2**30, opt_meta=meta)
+    log("phase 16c: " + json.dumps(row))
+    report["sp_train_cli"] = row
+    if backend != "nccl" or world != 1 or not isinstance(record["comm"],
+                                                        DistComm):
+        raise RuntimeError(f"sp cli: {backend} at world size {world}, "
+                           f"comm {type(record['comm']).__name__}")
+    if record["step"] != SPT_CLI_STEPS or not np.isfinite(
+            record["loss"]).all():
+        raise RuntimeError(f"sp cli: step {record['step']}, loss "
+                           f"{record['loss']}")
+    if counts != want:
+        raise RuntimeError(f"sp cli: launches {counts}, expected {want}")
+    if int(meta["count"]) != SPT_CLI_STEPS:
+        raise RuntimeError(f"sp cli: optimizer count {meta['count']}")
+    del record, model, opt, state
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+
+
+def phase_sp_train_qlora(report):
+    """(d) The 14B QLoRA step under Ulysses sp 2 on thread ranks: t2v-14B
+    at full width, depth cut to ``SPT_QLORA_LAYERS``, an int8 base (codes
+    and scales sharded, gathered per block), rank-64 adapters with a live
+    B replicated, 32,760 tokens, per-block remat: the adapter gradients
+    against the one-process step's; the base, gathered, bit-equal to the
+    unsharded one and unchanged."""
+    import torch
+
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.ops import int8_gemm as ig
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+    from moviigen_tpu_torch.parallel import sharding
+    from moviigen_tpu_torch.parallel.comm import (own_trained, run_ranks,
+                                                  thread_mesh)
+    from moviigen_tpu_torch.training import TrainConfig, make_train_step
+
+    cfg = WAN_CONFIGS[LORA_TASK].model.replace(num_layers=SPT_QLORA_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    with live_head():
+        model = WanModel(cfg, dtype=torch.float32, device=DEVICE,
+                         quant="int8").init_weights(gen)
+    model.requires_grad_(False)
+    _live_adapters(model, gen)
+    base = {n: t.clone() for n, t in model.named_buffers()}
+    _, f, h, w = TRAIN_LATENT
+    rope = rope_3d_freqs((f, h // 2, w // 2), cfg.head_dim, device=DEVICE)
+    batch = {"latents": torch.randn(1, *TRAIN_LATENT, generator=gen,
+                                    device=DEVICE),
+             "context": torch.randn(1, cfg.text_len, cfg.text_dim,
+                                    generator=gen, device=DEVICE)}
+    noise = torch.randn(batch["latents"].shape, generator=gen, device=DEVICE)
+    u = torch.tensor([0.37], device=DEVICE)
+    tc = TrainConfig(remat=True)
+    one = _GradsOf({n: p for n, p in model.named_parameters()
+                    if p.requires_grad})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_m = make_train_step(model, tc, rope, one)(batch, noise=noise, u=u)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    comms = thread_mesh(seq=2)
+    specs = sharding.dit_param_specs(model)
+
+    def rank(comm):
+        m = own_trained(sharding.shard_params(model, specs, comm, "seq"))
+        cap = _GradsOf({n: p for n, p in m.named_parameters()
+                        if p.requires_grad}, comm)
+        metrics = make_train_step(m, tc, rope, cap, comm=comm)(
+            batch, noise=noise, u=u)
+        with torch.no_grad():  # the base, gathered, as it was
+            buffers = dict(m.named_buffers())
+            same = all(torch.equal(comm.all_gather(buffers[n], "seq", d),
+                                   base[n])
+                       for n, d in sharding.sharded_tensors(m).items()
+                       if n in buffers)
+        return metrics, cap.grads, same
+
+    fa.reset_launch_counts()
+    ig.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = run_ranks(rank, comms)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {**fa.launch_counts(), **ig.launch_counts()}
+    expected = dict.fromkeys(counts, 0)
+    expected.update(_spt_expected("ulysses", 1, 2, SPT_QLORA_LAYERS))
+    errs = {}
+    for r, (_, grads, _) in enumerate(outs):
+        for name, w in one.grads.items():
+            errs[f"rank {r} {name}"] = float(
+                (grads[name] - w).norm() / w.norm().clamp_min(1e-30))
+    unchanged = all(torch.equal(t, base[n])
+                    for n, t in model.named_buffers())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    row = dict(layers=SPT_QLORA_LAYERS, tokens=32760, quant="int8",
+               sp_mode="ulysses", seq=2, s=secs, one_process_s=one_s,
+               loss=float(outs[0][0]["loss"]),
+               one_process_loss=float(want_m["loss"]),
+               adapters=len(one.grads), max_grad_rel_err=worst[0][1],
+               worst=dict(worst[:4]),
+               median_grad_rel_err=statistics.median(errs.values()),
+               base_gathered_equal=all(o[2] for o in outs),
+               base_unchanged=unchanged, launches=counts)
+    log("phase 16d: " + json.dumps(row))
+    report["sp_train_qlora"] = row
+    if not (row["base_gathered_equal"] and unchanged):
+        raise RuntimeError("sp qlora: the int8 base is not bit-equal")
+    bad = {n: e for n, e in errs.items() if not e <= SPT_GRAD_REL_TOL}
+    if bad or any(not bool(w.abs().max() > 0) for w in one.grads.values()):
+        raise RuntimeError(f"sp qlora: adapter gradients past "
+                           f"{SPT_GRAD_REL_TOL}: "
+                           f"{dict(list(bad.items())[:6])}")
+    if counts != expected:
+        raise RuntimeError(f"sp qlora: launches {counts}, expected "
+                           f"{expected}")
+    del model, outs, one, base
+    torch.cuda.empty_cache()
+
+
+def phase_sp_train(report):
+    t0 = time.perf_counter()
+    for sub in (phase_sp_train_pairs, phase_sp_train_step,
+                phase_sp_train_cli, phase_sp_train_qlora):
+        t1 = time.perf_counter()
+        sub(report)
+        log(f"phase 16: {sub.__name__} {time.perf_counter() - t1:.1f} s")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
           9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora,
           12: phase_i2v, 13: phase_sp, 14: phase_utils,
-          15: phase_qlora_profile}
+          15: phase_qlora_profile, 16: phase_sp_train}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13,14,16",
                     help="comma-separated phases to run (default: all "
                          "but the profiles, 5, 7, 9 and 15)")
     args = ap.parse_args(argv)

@@ -1,5 +1,5 @@
 """Fine-tuning CLI of the PyTorch port: full or LoRA / QLoRA fine-tuning
-of the t2v DiT on one device.
+of the t2v DiT on one card or, under ``torchrun``, on a mesh of ranks.
 
 Counterpart of ``moviigen_tpu/cli/finetune.py`` (ref
 ``scripts/train/finetune.py``): the same flag surface and loop — the
@@ -17,8 +17,22 @@ CPU). The loader reads each batch's ``.npy`` caches through the native
 reader pool (``native/``) when it can be built. ``--profile_steps N``
 traces the first N steps with torch.profiler into
 ``<output_dir>/profile`` (a Chrome trace) and logs their phase times.
-``--sp_size`` > 1 (a later slice, ROADMAP item 11b) and the JAX memory
-knobs (not ported, by design) are accepted by the parser and refused.
+The JAX memory knobs (not ported, by design) are accepted by the parser
+and refused.
+
+Under ``torchrun`` the ranks form a ``(data, seq)`` mesh (the JAX CLI's,
+finetune.py:149-153): ``--sp_size`` ranks of Ulysses sequence parallelism
+each, the world size over ``--sp_size`` data-parallel groups, the nodes
+spanning ``data`` (``make_pod_mesh``). The DiT's block weights, their
+gradients and AdamW moments are held as shards over ``seq`` and gathered
+per block (``parallel/sharding.py``); with ``--use_lora`` the frozen
+(quantized) base is sharded and the adapters replicated. Every rank reads
+the same global batch of ``--train_batch_size`` × data items (the
+sampler's rank-0 view) and draws the same noise; rank 0 logs, writes
+TensorBoard and the checkpoints (gathered one tensor at a time into the
+one-process layout), the others take part in the collectives. Over NCCL
+each rank needs a card of its own; ``--device cpu`` runs the ranks over
+gloo.
 
 Examples:
     python -m moviigen_tpu_torch.cli.finetune --task t2v-1.3B \\
@@ -26,6 +40,9 @@ Examples:
         --gradient_checkpointing --max_train_steps 6000
     python -m moviigen_tpu_torch.cli.finetune --task t2v-14B --use_lora \\
         --quant int8 --gradient_checkpointing --export_safetensors \\
+        --data_json_path data/preprocess/videos2caption.json
+    torchrun --nproc_per_node 8 -m moviigen_tpu_torch.cli.finetune \\
+        --task t2v-14B --sp_size 8 --gradient_checkpointing \\
         --data_json_path data/preprocess/videos2caption.json
 """
 
@@ -134,35 +151,75 @@ def _validate_args(args) -> None:
     if args.quant and not args.use_lora:
         raise SystemExit("--quant requires --use_lora (the packed base is "
                          "frozen; only adapters train)")
-    if args.sp_size != 1:
-        raise NotImplementedError(
-            "--sp_size > 1 is not supported by the PyTorch port yet; it "
-            "comes with the multi-GPU slice (ROADMAP queue 1 item 11)")
+    if args.sp_size < 1:
+        raise ValueError(f"--sp_size must be >= 1, got {args.sp_size}")
     if args.remat_group > 1 and not args.gradient_checkpointing:
         raise ValueError("--remat_group needs --gradient_checkpointing")
+
+
+def build_mesh(args):
+    """The ``(data, seq)`` mesh over the process group's ranks (the JAX
+    CLI's, finetune.py:143-153), or None in a process alone."""
+    from ..parallel import distributed
+    from ..parallel.mesh import make_pod_mesh
+
+    sp = args.sp_size
+    if not distributed.is_initialized():
+        if sp > 1:
+            raise ValueError(f"--sp_size {sp} needs {sp} ranks: launch "
+                             "them with torchrun (moviigen_tpu_torch/"
+                             "scripts/finetune.sh)")
+        return None
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if world % sp:
+        raise ValueError(f"--sp_size {sp} must divide the world size "
+                         f"{world}")
+    mesh = make_pod_mesh(data=world // sp, seq=sp)
+    logging.info("mesh: data %d x seq %d", world // sp, sp)
+    return mesh
 
 
 def main(argv=None) -> dict:
     """Run the fine-tune; returns the run's record: the last step, the
     per-step seconds, losses and grad norms, the final checkpoint's path
-    and the seconds its save took, the trained model, optimizer and LoRA
-    adapters (None for a full fine-tune), the profiler's ``Trace`` (None
-    without ``--profile_steps``) and the batches the loader read through
-    the native pool and in Python."""
+    and the seconds its save took, the trained model (under a mesh this
+    rank's sharded copy), optimizer and LoRA adapters (None for a full
+    fine-tune), the mesh's comm (None in a process alone), the profiler's
+    ``Trace`` (None without ``--profile_steps``) and the batches the
+    loader read through the native pool and in Python. Under ``torchrun``
+    the process group is brought up first and, if this call brought it
+    up, taken down at the end."""
+    from ..parallel import distributed
+
     args = _parse_args(argv)
     _validate_args(args)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] %(levelname)s: %(message)s")
+    owned = not distributed.is_initialized()
+    distributed.maybe_initialize_distributed(device=args.device)
+    try:
+        return _main(args)
+    finally:
+        if owned and distributed.is_initialized():
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _main(args) -> dict:
     from ..models.wan_convert import load_wan_checkpoint
     from ..models.wan_model import WanModel
     from ..ops.rope import rope_3d_freqs
+    from ..parallel import distributed
+    from ..parallel.comm import AXES
+    from ..parallel.sharding import dit_param_specs, shard_axis, shard_params
     from ..pipelines.text2video import resolve_device
     from ..training import TrainConfig, make_optimizer, make_train_step
-    from ..training.checkpoint import (LORA_EXPORT_NAME,
-                                       export_lora_safetensors,
-                                       latest_checkpoint, restore_checkpoint,
-                                       save_checkpoint)
+    from ..training.checkpoint import (
+        LORA_EXPORT_NAME, export_lora_safetensors, latest_checkpoint,
+        restore_checkpoint, save_checkpoint)
     from ..training.data import (
         DataLoader, LatentDataset,
         SPAwareAspectRatioLengthBucketDistributedSampler)
@@ -170,7 +227,12 @@ def main(argv=None) -> dict:
                                  lora_parameters, lora_state_dict)
     from ..utils.profiling import PhaseTimer, trace
 
-    device = resolve_device(args.device)
+    mesh = build_mesh(args)
+    writer = mesh is None or mesh.rank == 0
+    if not writer:  # rank 0 logs; the others say only what goes wrong
+        logging.getLogger().setLevel(logging.WARNING)
+    device = resolve_device(distributed.local_device(args.device))
+    data_par = 1 if mesh is None else mesh.axis_size("data")
     cfg = WAN_CONFIGS[args.task]
     mcfg = cfg.model
     if args.cross_attn_backend:
@@ -207,7 +269,15 @@ def main(argv=None) -> dict:
         logging.info("LoRA rank %d alpha %g on %d linears, %d parameters",
                      args.lora_rank, args.lora_alpha, len(adapters),
                      sum(p.numel() for p in trainable))
-    else:
+    if mesh is not None:
+        # the block weights (a QLoRA base's codes and scales) as shards
+        # over seq; the adapters, which the shards' modules carry, stay
+        # the same tensors, replicated
+        model = shard_params(model, dit_param_specs(model), mesh,
+                             shard_axis(mesh))
+        logging.info("DiT block weights sharded over %d ranks",
+                     mesh.axis_size(shard_axis(mesh)))
+    if not args.use_lora:
         trainable = list(model.parameters())
 
     # ---- data
@@ -215,11 +285,15 @@ def main(argv=None) -> dict:
                             cfg_rate=args.cfg_rate,
                             txt_max_len=mcfg.text_len,
                             text_dim=mcfg.text_dim, seed=args.seed)
+    # every rank reads the global batch (the sampler's rank-0 view), as
+    # the JAX CLI's one process does (finetune.py:174-180); the SP forward
+    # takes each rank's rows
+    batch_size = args.train_batch_size * data_par
     sampler = SPAwareAspectRatioLengthBucketDistributedSampler(
-        batch_size=args.train_batch_size, dataset_size=len(dataset), rank=0,
+        batch_size=batch_size, dataset_size=len(dataset), rank=0,
         world_size=1, sp_size=1, lengths=dataset.lengths,
         aspect_ratios=list(dataset.aspect_ratios), seed=args.seed)
-    loader = DataLoader(dataset, sampler, batch_size=args.train_batch_size)
+    loader = DataLoader(dataset, sampler, batch_size=batch_size)
     logging.info("native reader pool %s", "in use" if loader.uses_native
                  else "unavailable: batches read in Python")
 
@@ -229,8 +303,10 @@ def main(argv=None) -> dict:
             w_lat // mcfg.patch_size[2])
     rope = rope_3d_freqs(grid, mcfg.head_dim, device=device)
     tokens = int(np.prod(grid))
-    logging.info("latent %s → grid %s (%d tokens)", (c, t_lat, h_lat, w_lat),
-                 grid, tokens)
+    sp = args.sp_size
+    seq_len = -(-tokens // sp) * sp  # the tokens padded to split over sp
+    logging.info("latent %s → grid %s (%d tokens, seq_len %d)",
+                 (c, t_lat, h_lat, w_lat), grid, tokens, seq_len)
 
     tc = TrainConfig(
         learning_rate=args.learning_rate,
@@ -249,10 +325,12 @@ def main(argv=None) -> dict:
         lr_warmup_steps=args.lr_warmup_steps,
         max_train_steps=args.max_train_steps,
     )
-    opt = make_optimizer(trainable, tc)
+    opt = make_optimizer(trainable, tc, comm=mesh)
     train_step = make_train_step(
         model, tc, rope, opt,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
+        seq_len=seq_len if seq_len > tokens else None,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        comm=mesh)
 
     # ---- resume
     start_step = 0
@@ -262,17 +340,20 @@ def main(argv=None) -> dict:
             found = latest_checkpoint(args.output_dir)
             path = found[0] if found else None
         if path:
-            start_step = restore_checkpoint(
-                path, lora_state_dict(adapters) if adapters else model, opt)
+            target = lora_state_dict(adapters) if adapters else model
+            start_step = restore_checkpoint(path, target, opt, comm=mesh)
             logging.info("resumed from %s at step %d", path, start_step)
 
-    # ---- TensorBoard (ref finetune.py:326-327, 641-656), when installed
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-    except ImportError:
-        writer = None
-    else:
-        writer = SummaryWriter(os.path.join(args.output_dir, "logs"))
+    # ---- TensorBoard (ref finetune.py:326-327, 641-656), when installed,
+    # on rank 0
+    tb = None
+    if writer:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            pass
+        else:
+            tb = SummaryWriter(os.path.join(args.output_dir, "logs"))
 
     def do_save(step, is_final=False):
         meta = {"final": is_final, "lora": bool(args.use_lora),
@@ -282,11 +363,13 @@ def main(argv=None) -> dict:
             # the alpha/rank scale when it attaches them to a base
             meta.update(lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
                         lora_dtype=args.lora_dtype)
+        target = lora_state_dict(adapters) if adapters else model
         path = save_checkpoint(
-            args.output_dir, step,
-            lora_state_dict(adapters) if adapters else model, opt,
-            extra_meta=meta,
-            export_safetensors=args.export_safetensors and not adapters)
+            args.output_dir, step, target, opt, extra_meta=meta,
+            export_safetensors=args.export_safetensors and not adapters,
+            comm=mesh)
+        if not writer:
+            return path
         if adapters and args.export_safetensors:
             # the adapters in peft layout (ref save_lora_checkpoint,
             # finetune.py:501-502), never the full model
@@ -296,11 +379,24 @@ def main(argv=None) -> dict:
         logging.info("saved checkpoint %s", path)
         return path
 
-    # signal-triggered checkpoint (ref finetune.py:159-169, 508-510)
+    # signal-triggered checkpoint (ref finetune.py:159-169, 508-510): the
+    # handler only takes note, and the loop saves after the step, where
+    # the parameters are whole and, under a mesh, where every rank stands:
+    # the save's gathers are collectives, and a rank inside the step's
+    # would pair them with the wrong ones
+    signalled = []
+
     def handler(signum, frame):
-        logging.info("signal %d: checkpointing before exit", signum)
-        do_save(step, is_final=True)
-        sys.exit(0)
+        logging.info("signal %d: checkpointing after this step", signum)
+        signalled.append(signum)
+
+    def stop_now() -> bool:
+        """Whether any rank took a signal (the same answer on every
+        rank)."""
+        if mesh is None:
+            return bool(signalled)
+        flag = torch.tensor(float(bool(signalled)), device=device)
+        return bool(mesh.all_reduce(flag, AXES) > 0)
 
     prev_int = signal.signal(signal.SIGINT, handler)
     prev_term = signal.signal(signal.SIGTERM, handler)
@@ -310,10 +406,11 @@ def main(argv=None) -> dict:
     step = start_step
     epoch = 0
     # the first --profile_steps steps under torch.profiler (the JAX CLI's
-    # window: opened before the first step, closed after step N - 1)
+    # window: opened before the first step, closed after step N - 1), on
+    # rank 0
     timer = PhaseTimer(enabled=args.profile_steps > 0)
     profile_ctx = None
-    if args.profile_steps > 0:
+    if args.profile_steps > 0 and writer:
         profile_ctx = trace(os.path.join(args.output_dir, "profile"),
                             device=device)
         record["profile"] = profile_ctx.__enter__()
@@ -351,19 +448,22 @@ def main(argv=None) -> dict:
                 record["step_s"].append(dt)
                 record["loss"].append(loss)
                 record["grad_norm"].append(gnorm)
-                if writer is not None:
-                    writer.add_scalar("loss", loss, step)
-                    writer.add_scalar("grad_norm", gnorm, step)
-                    writer.add_scalar("epoch", epoch, step)
-                    writer.add_scalar("time/step_time", dt, step)
-                    writer.add_scalar("time/avg_step_time",
-                                      sum(step_times) / len(step_times), step)
+                if tb is not None:
+                    tb.add_scalar("loss", loss, step)
+                    tb.add_scalar("grad_norm", gnorm, step)
+                    tb.add_scalar("epoch", epoch, step)
+                    tb.add_scalar("time/step_time", dt, step)
+                    tb.add_scalar("time/avg_step_time",
+                                  sum(step_times) / len(step_times), step)
                     # per-timestep-bin loss (ref finetune.py:641-656)
                     bin_i = int(float(metrics["timestep_mean"]) // 100)
-                    writer.add_scalar(f"loss_bin_{bin_i}", loss, step)
+                    tb.add_scalar(f"loss_bin_{bin_i}", loss, step)
                 if step % 10 == 0 or step == 1:
                     logging.info("step %d loss %.5f grad_norm %.4f %.2fs/step",
                                  step, loss, gnorm, dt)
+                if stop_now():
+                    do_save(step, is_final=True)
+                    sys.exit(0)
                 if step % args.checkpointing_steps == 0:
                     do_save(step)
             epoch += 1
@@ -375,9 +475,10 @@ def main(argv=None) -> dict:
         loader.close()
         signal.signal(signal.SIGINT, prev_int)
         signal.signal(signal.SIGTERM, prev_term)
-        if writer is not None:
-            writer.close()
+        if tb is not None:
+            tb.close()
     record.update(step=step, model=model, optimizer=opt, adapters=adapters,
+                  comm=mesh,
                   native_batches=loader.native_batches,
                   python_batches=loader.python_batches)
     logging.info("training done at step %d", step)

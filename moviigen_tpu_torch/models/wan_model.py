@@ -415,19 +415,20 @@ class WanModel(nn.Module):
         ``self_attn_fn`` replaces each block's attention over its rotated
         heads; ``param_gather_fn(block)`` gives the block to run in its
         place (the sequence-parallel forward's per-block weight gathers,
-        ``parallel/sharding.py``), applied just before it runs."""
+        ``parallel/sharding.py``), applied just before it runs and, under
+        remat, inside the checkpointed function, as the JAX package gathers
+        inside its checkpointed scan body (wan_model.py:1142-1168): the
+        gathered weights are gathered again in the backward, never kept."""
         args = (e0, ctx, rope, k_lens, compute_dtype, attn_backend,
                 self_attn_fn)
         blocks = list(self.blocks)
-        if param_gather_fn is not None:
-            if remat:
-                raise NotImplementedError(
-                    "per-block weight gathers under remat: training under "
-                    "sequence parallelism is ROADMAP item 11b")
-            for blk in blocks:
-                xr = param_gather_fn(blk)(xr, *args)
-            return xr
         g = remat_group if remat else 1
+
+        def run(i, x):
+            blk = blocks[i]
+            if param_gather_fn is not None:
+                blk = param_gather_fn(blk)
+            return blk(x, *args)
 
         def ckpt(fn, *a):
             # the blocks draw no random numbers: no RNG state to keep
@@ -440,15 +441,15 @@ class WanModel(nn.Module):
                                  f"{len(blocks)}-layer stack")
 
             def group(x, i0):
-                for blk in blocks[i0:i0 + g]:
-                    x = ckpt(blk, x, *args)
+                for i in range(i0, i0 + g):
+                    x = ckpt(run, i, x)
                 return x
 
             for i0 in range(0, len(blocks), g):
                 xr = ckpt(group, xr, i0)
         else:
-            for blk in blocks:
-                xr = ckpt(blk, xr, *args) if remat else blk(xr, *args)
+            for i in range(len(blocks)):
+                xr = ckpt(run, i, xr) if remat else run(i, xr)
         return xr
 
     def check_inputs(self, clip_fea, y) -> None:

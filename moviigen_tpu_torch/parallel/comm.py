@@ -15,7 +15,31 @@ answers the same calls over the axes ``data``, ``ring`` and ``seq``:
   previous rank's x comes back (``jax.lax.ppermute`` with
   ``perm = [(i, (i + 1) % n)]``);
 - ``all_gather(x, axis, dim)``: the axis' tensors concatenated along
-  ``dim`` in rank order (``jax.lax.all_gather(..., tiled=True)``).
+  ``dim`` in rank order (``jax.lax.all_gather(..., tiled=True)``);
+- ``reduce_scatter(x, axis, dim)``: the axis' tensors summed, then cut
+  along ``dim`` and chunk i kept by rank i (``jax.lax.psum_scatter(...,
+  tiled=True)``);
+- ``all_reduce(x, axis)``: the axis' tensors summed (``jax.lax.psum``).
+
+Each is differentiable, with the backward that JAX's transpose rules
+give: the all-to-all's is the reverse all-to-all (split and concat
+swapped), the ring shift's a shift the other way, the all-gather's a
+reduce-scatter (a sum) and the reduce-scatter's an all-gather; the
+all-reduce's is an all-reduce. Three more say how a value crosses
+between what every rank holds alike and what each holds of its own, the
+transposes of ``shard_map``'s in and out specs:
+
+- ``shard(x, axis, dim)``: this rank's chunk of a value every rank holds
+  alike; the backward all-gathers the chunks' gradients;
+- ``unshard(x, axis, dim)``: the chunks gathered into the whole for a
+  computation every rank then repeats alike (the DiT's head and loss);
+  the backward keeps this rank's chunk of the gradient (a sum would
+  count the one loss once per rank);
+- ``replicate(x, axis)``: x as it is, into computations that differ
+  from rank to rank (the block stack's weights, each rank's tokens); the
+  backward sums the gradients over the axis.
+
+An axis of size 1 makes every collective the identity.
 
 ``axis`` is one name or a tuple of names taken jointly, the first one
 outer: ``("ring", "seq")`` is the token axis of the hybrid Ulysses × ring
@@ -35,7 +59,8 @@ Two implementations answer the same calls:
   which NCCL refuses.
 
 Every rank must make the same collective calls in the same order (the
-code is SPMD, as the JAX package's ``shard_map`` bodies are).
+code is SPMD, as the JAX package's ``shard_map`` bodies are); in the
+backward too, which autograd gives when every rank's graph is the same.
 """
 
 from __future__ import annotations
@@ -128,17 +153,99 @@ class Comm:
         return out
 
     # the collectives -------------------------------------------------
+    # Subclasses implement the raw ops (``_all_to_all``, ``_ring_shift``,
+    # ``_all_gather``, ``_reduce_scatter``, ``_all_reduce``), which record
+    # nothing for autograd; the public ones below wrap them in
+    # ``torch.autograd.Function``s.
 
     def all_to_all(self, x: torch.Tensor, axis: Axis, split_dim: int,
                    concat_dim: int) -> torch.Tensor:
-        raise NotImplementedError
+        return self._apply(
+            x, axis,
+            lambda t: self._all_to_all(t, axis, split_dim, concat_dim),
+            lambda g: self._all_to_all(g, axis, concat_dim, split_dim))
 
     def ring_shift(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
-        raise NotImplementedError
+        return self._apply(x, axis, lambda t: self._ring_shift(t, axis, 1),
+                           lambda g: self._ring_shift(g, axis, -1))
 
     def all_gather(self, x: torch.Tensor, axis: Axis,
                    dim: int) -> torch.Tensor:
+        return self._apply(x, axis, lambda t: self._all_gather(t, axis, dim),
+                           lambda g: self._reduce_scatter(g, axis, dim))
+
+    def reduce_scatter(self, x: torch.Tensor, axis: Axis,
+                       dim: int) -> torch.Tensor:
+        return self._apply(x, axis,
+                           lambda t: self._reduce_scatter(t, axis, dim),
+                           lambda g: self._all_gather(g, axis, dim))
+
+    def all_reduce(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
+        return self._apply(x, axis, lambda t: self._all_reduce(t, axis),
+                           lambda g: self._all_reduce(g, axis))
+
+    def shard(self, x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+        n = self.axis_size(axis)
+        if n > 1 and x.shape[dim] % n:
+            raise ValueError(f"shard: dim {dim} of {tuple(x.shape)} does "
+                             f"not split over {n} ranks")
+        return self._apply(x, axis, lambda t: self._chunk(t, axis, dim),
+                           lambda g: self._all_gather(g, axis, dim))
+
+    def unshard(self, x: torch.Tensor, axis: Axis,
+                dim: int) -> torch.Tensor:
+        return self._apply(x, axis, lambda t: self._all_gather(t, axis, dim),
+                           lambda g: self._chunk(g, axis, dim))
+
+    def replicate(self, x: torch.Tensor, axis: Axis) -> torch.Tensor:
+        if not torch.is_grad_enabled():
+            return x
+        return self._apply(x, axis, lambda t: t.view_as(t),
+                           lambda g: self._all_reduce(g, axis))
+
+    def _apply(self, x, axis, fwd, bwd):
+        """``fwd(x)`` with ``bwd`` as its backward; the identity over an
+        axis of size 1."""
+        if self.axis_size(axis) == 1:
+            return x
+        return _Collective.apply(x, fwd, bwd)
+
+    def _chunk(self, x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+        """This rank's chunk of x along ``dim`` (a contiguous copy)."""
+        c = x.shape[dim] // self.axis_size(axis)
+        return x.narrow(dim, self.axis_index(axis) * c, c).contiguous()
+
+    def _all_to_all(self, x, axis, split_dim, concat_dim):
         raise NotImplementedError
+
+    def _ring_shift(self, x, axis, shift=1):
+        """x to the rank ``shift`` places on along the axis (1: the next,
+        -1: the previous); that rank's counterpart comes back."""
+        raise NotImplementedError
+
+    def _all_gather(self, x, axis, dim):
+        raise NotImplementedError
+
+    def _reduce_scatter(self, x, axis, dim):
+        raise NotImplementedError
+
+    def _all_reduce(self, x, axis):
+        raise NotImplementedError
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd(x)`` recorded for autograd with ``bwd(grad)`` as its
+    backward; both are raw collectives (or local ops), which record
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
 
 
 class DistComm(Comm):
@@ -166,7 +273,10 @@ class DistComm(Comm):
         me = dist.get_rank()
         probe = Comm(data, ring, seq, 0)
         groups = {}
-        for key in (("data",), ("ring",), ("seq",), ("ring", "seq")):
+        # a group for every set of axes, named in mesh order
+        keys = [key for n in range(1, len(AXES) + 1)
+                for key in itertools.combinations(AXES, n)]
+        for key in keys:
             others = [a for a in AXES if a not in key]
             for combo in itertools.product(*(range(probe.sizes[a])
                                               for a in others)):
@@ -181,9 +291,10 @@ class DistComm(Comm):
         return cls(data, ring, seq, list(ranks).index(me), ranks, groups)
 
     def _group(self, axis: Axis):
-        return self.groups[self._axes(axis)]
+        axes = self._axes(axis)
+        return self.groups[tuple(a for a in AXES if a in axes)]
 
-    def all_to_all(self, x, axis, split_dim, concat_dim):
+    def _all_to_all(self, x, axis, split_dim, concat_dim):
         import torch.distributed as dist
 
         n = self.axis_size(axis)
@@ -192,7 +303,7 @@ class DistComm(Comm):
         dist.all_to_all_single(recv, send, group=self._group(axis))
         return _merge_from_front(recv, concat_dim)
 
-    def ring_shift(self, x, axis):
+    def _ring_shift(self, x, axis, shift=1):
         import torch.distributed as dist
 
         members = [self.ranks[p] for p in self.group(axis)]
@@ -200,13 +311,13 @@ class DistComm(Comm):
         send = x.contiguous()
         recv = torch.empty_like(send)
         group = self._group(axis)
-        ops = [dist.P2POp(dist.isend, send, members[(i + 1) % n], group),
-               dist.P2POp(dist.irecv, recv, members[(i - 1) % n], group)]
+        ops = [dist.P2POp(dist.isend, send, members[(i + shift) % n], group),
+               dist.P2POp(dist.irecv, recv, members[(i - shift) % n], group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
 
-    def all_gather(self, x, axis, dim):
+    def _all_gather(self, x, axis, dim):
         import torch.distributed as dist
 
         n = self.axis_size(axis)
@@ -214,6 +325,29 @@ class DistComm(Comm):
         recv = send.new_empty((n * send.shape[0], *send.shape[1:]))
         dist.all_gather_into_tensor(recv, send, group=self._group(axis))
         return recv.movedim(0, dim).contiguous()
+
+    def _reduce_scatter(self, x, axis, dim):
+        import torch.distributed as dist
+
+        n = self.axis_size(axis)
+        send = x.movedim(dim, 0).contiguous()
+        if send.shape[0] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of "
+                             f"{tuple(x.shape)} does not split over {n} "
+                             "ranks")
+        recv = send.new_empty((send.shape[0] // n, *send.shape[1:]))
+        # reduce_scatter_tensor is the older name of reduce_scatter_single
+        fn = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        fn(recv, send, group=self._group(axis))
+        return recv.movedim(0, dim).contiguous()
+
+    def _all_reduce(self, x, axis):
+        import torch.distributed as dist
+
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=self._group(axis))
+        return out
 
 
 class _Rendezvous:
@@ -237,7 +371,11 @@ class ThreadComm(Comm):
     """A ``Comm`` whose ranks are threads of one process (``thread_mesh``,
     ``run_ranks``). A collective puts each rank's tensor in a shared slot
     table, waits at a barrier for the others, and builds its result from
-    the slots with ordinary tensor ops (concatenation, slicing, a copy).
+    the slots with ordinary tensor ops (concatenation, slicing, a copy, a
+    sum in rank order). The raw ops run inside the autograd functions'
+    forward and backward, where nothing is recorded: a rank's graph never
+    reaches into a peer's tensors, so each rank's backward runs only its
+    own graph.
 
     On the card every thread launches on the same stream, the one that
     was current where ``run_ranks`` was called: the order in which the
@@ -254,7 +392,7 @@ class ThreadComm(Comm):
         slots = self._rv.exchange(self.rank, x)
         return [slots[p] for p in self.group(axis)]
 
-    def all_to_all(self, x, axis, split_dim, concat_dim):
+    def _all_to_all(self, x, axis, split_dim, concat_dim):
         peers = self._peers(x, axis)
         n, i = len(peers), self.axis_index(axis)
         if x.shape[split_dim] % n:
@@ -265,12 +403,35 @@ class ThreadComm(Comm):
         return torch.cat([p.narrow(split_dim, i * c, c) for p in peers],
                          dim=concat_dim).contiguous()
 
-    def ring_shift(self, x, axis):
+    def _ring_shift(self, x, axis, shift=1):
         peers = self._peers(x, axis)
-        return peers[(self.axis_index(axis) - 1) % len(peers)].clone()
+        return peers[(self.axis_index(axis) - shift) % len(peers)].clone()
 
-    def all_gather(self, x, axis, dim):
+    def _all_gather(self, x, axis, dim):
         return torch.cat(self._peers(x, axis), dim=dim).contiguous()
+
+    def _reduce_scatter(self, x, axis, dim):
+        peers = self._peers(x, axis)
+        n = len(peers)
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of "
+                             f"{tuple(x.shape)} does not split over {n} "
+                             "ranks")
+        c = x.shape[dim] // n
+        i = self.axis_index(axis)
+        return _sum([p.narrow(dim, i * c, c) for p in peers]).contiguous()
+
+    def _all_reduce(self, x, axis):
+        return _sum(self._peers(x, axis))
+
+
+def _sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """x₀ + x₁ + … added in rank order, so that every rank gets the same
+    bits."""
+    out = xs[0].clone()
+    for x in xs[1:]:
+        out += x
+    return out
 
 
 def thread_mesh(data: int = 1, seq: int = 1, ring: int = 1,
@@ -282,13 +443,36 @@ def thread_mesh(data: int = 1, seq: int = 1, ring: int = 1,
     return [ThreadComm(data, ring, seq, r, rv) for r in range(n)]
 
 
+def own_trained(module):
+    """``module``, a thread rank's copy from ``sharding.shard_params``,
+    with its own copy of each trained tensor that is not a shard, in
+    place. ``shard_params`` shares those with every other rank's copy;
+    a rank that trains needs its own, so that the in-place optimizer
+    update runs once on each. Frozen tensors stay shared. Returns
+    ``module``."""
+    from torch import nn
+
+    from .sharding import is_shard
+
+    for m in module.modules():
+        for name, p in m._parameters.items():
+            if p is not None and p.requires_grad and not is_shard(p):
+                m._parameters[name] = nn.Parameter(p.detach().clone())
+    return module
+
+
 def run_ranks(fn: Callable[[ThreadComm], object],
               comms: Sequence[ThreadComm]) -> list:
     """``fn(comm)`` for every rank of a ``thread_mesh``, each in a thread
     of its own; returns the results in rank order. The threads take the
     caller's grad mode, CUDA device and current stream (each is per
     thread in PyTorch), so the ranks run after the work that made their
-    inputs, on one stream.
+    inputs, on one stream. Each runs its backward passes on its own thread
+    (``torch.autograd.set_multithreading_enabled(False)``, thread-local):
+    PyTorch otherwise runs the CUDA nodes of every backward in the
+    process on one worker thread per device, where rank 0's first
+    backward collective would wait at the barrier for rank 1's, queued
+    behind it.
     If a rank raises, the barrier is broken so that the others stop too,
     and the first rank's own error is raised here."""
     grad = torch.is_grad_enabled()
@@ -301,7 +485,8 @@ def run_ranks(fn: Callable[[ThreadComm], object],
         try:
             if stream is not None:
                 torch.cuda.set_device(stream.device)
-            with torch.set_grad_enabled(grad), torch.cuda.stream(stream):
+            with torch.set_grad_enabled(grad), torch.cuda.stream(stream), \
+                    torch.autograd.set_multithreading_enabled(False):
                 results[i] = fn(comms[i])
         except BaseException as e:  # noqa: BLE001 (re-raised below)
             errors[i] = e

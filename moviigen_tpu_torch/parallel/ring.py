@@ -1,8 +1,8 @@
-"""Ring attention, the forward: sequence-parallel attention with rotating
-K/V shards.
+"""Ring attention: sequence-parallel attention with rotating K/V shards.
 
-Counterpart of the forward of ``moviigen_tpu/parallel/ring.py``
-(``_local_klens``, ``_ring_fwd_loop``, ``ring_self_attention``). Each rank
+Counterpart of ``moviigen_tpu/parallel/ring.py`` (``_local_klens``,
+``_ring_fwd_loop``, ``ring_self_attention`` and the ring-level custom VJP
+``_ring_flash``). Each rank
 keeps its query shard and passes its K/V shard around the ring
 (``Comm.ring_shift``); at every step it runs the stats forward
 (``ops.flash_attention.flash_attention_with_stats``: the ``flash_fwd.cu``
@@ -17,8 +17,18 @@ that has attended to nothing (l = 0) is divided by 1. A key shard that
 lies wholly in the padding arrives with ``k_len`` 0; the stats kernel
 gives it m = -1e30 (base 2) and l = 0, so it adds nothing.
 
-The backward (the JAX ring-level custom VJP) is not ported: under
-autograd ``ring_self_attention`` raises.
+Under autograd the ring is one ``torch.autograd.Function``
+(``RingAttention``, the JAX ``_ring_flash_fwd`` / ``_ring_flash_bwd``).
+The forward keeps only the home shards and the merged (o, m, l); the
+backward rotates K/V again (rematerialized, never saved) together with
+fp32 dK/dV accumulators, and at each of the sp steps runs one pair
+backward (``flash_bwd_cuda``: the dKV and dQ kernels on the card,
+``flash_bwd_plain`` on the CPU) with the **global** stats and the held
+shard's own key count. The flash backward splits exactly over key shards
+given the global (m, l) and Δ = rowsum(o·dO) of the global o, so the
+pairs' dq add up on the rank and each dk/dv accumulator, rotated with its
+shard, comes home with the last rotation. A pair whose shard has
+``k_len`` 0 has P = 0 and adds exactly zero.
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.flash_attention import flash_attention_with_stats, needs_grad
+from ..ops.flash_attention import (LOG2E, flash_attention_with_stats,
+                                   flash_bwd_cuda, flash_bwd_plain)
 from .comm import Axis, Comm
 
 _NEG_INF = -1e30
@@ -84,6 +95,55 @@ def _ring_fwd_loop(q, k, v, k_lens, comm: Comm, axis: Axis, scale,
     return o_acc, m_acc, l_acc
 
 
+class RingAttention(torch.autograd.Function):
+    """The ring-level custom VJP (``ring.py:127-216``) over the rank's
+    q/k/v shards (already in the compute dtype)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_lens, comm, axis, scale, backend):
+        o, m, l = _ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
+                                 backend)
+        out = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, m, l, k_lens)
+        ctx.args = (comm, axis, scale, backend)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, l, k_lens = ctx.saved_tensors
+        comm, axis, scale, backend = ctx.args
+        sp, me = comm.axis_size(axis), comm.axis_index(axis)
+        shard = k.shape[1]
+        # the pair backward takes the stats as the kernels keep them:
+        # [B, N, Lq] fp32 contiguous, m in base 2 (the JAX m2 = m·log2 e)
+        m2 = (m * LOG2E).transpose(1, 2).contiguous()
+        l2 = l.transpose(1, 2).contiguous()
+        do = g.to(q.dtype)
+        bwd = flash_bwd_cuda if q.is_cuda and backend == "auto" \
+            else flash_bwd_plain
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        k_blk, v_blk = k, v
+        for step in range(sp):
+            src = (me - step) % sp
+            dq_p, dk_p, dv_p = bwd(q, k_blk, v_blk,
+                                   _local_klens(k_lens, src, shard), out,
+                                   m2, l2, do, scale)
+            dq += dq_p.float()
+            dk += dk_p.float()
+            dv += dv_p.float()
+            # the accumulators travel with their shard; the last rotation
+            # (K/V no longer needed) brings every dk/dv home
+            dk = comm._ring_shift(dk, axis)
+            dv = comm._ring_shift(dv, axis)
+            if step < sp - 1:
+                k_blk = comm._ring_shift(k_blk, axis)
+                v_blk = comm._ring_shift(v_blk, axis)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
+
+
 def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_lens: Optional[torch.Tensor], comm: Comm,
                         axis: Axis = "seq", scale: Optional[float] = None,
@@ -93,15 +153,9 @@ def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v: [B, L/sp, N, D], this rank's shard along ``axis``; returns
     its queries' attention over the whole sequence in ``compute_dtype``.
     ``k_lens`` is the global key length per batch entry (the padded tail
-    is masked)."""
-    if needs_grad(q, k, v):
-        raise NotImplementedError(
-            "ring attention has no backward in the PyTorch port yet: "
-            "training under sequence parallelism is ROADMAP item 11b; run "
-            "the forward under torch.no_grad()")
+    is masked). Differentiable (``RingAttention``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q, k, v = (x.to(compute_dtype).contiguous() for x in (q, k, v))
-    o, _, _ = _ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
-                             attn_backend)
-    return o.to(compute_dtype)
+    return RingAttention.apply(q, k, v, k_lens, comm, axis, scale,
+                               attn_backend)

@@ -26,6 +26,35 @@ The rules, on PyTorch's ``[out, in]`` weights (JAX's kernels are
 A gather over the comm (rather than FSDP2 or DTensor) runs over
 ``ThreadComm`` on one card as it runs over NCCL, and moves the quantized
 buffers without a wrapper.
+
+Training (the JAX ``shard_map`` transpose of the same gathers):
+
+- A shard of a trained tensor is the leaf ``nn.Parameter`` the optimizer
+  holds (``requires_grad`` as the full tensor had it). The gathered full
+  weight is a non-leaf tensor tied to the shard by the gather's autograd
+  op, whose backward reduce-scatters the block's gradient (a sum over the
+  shard axes) into the shard's; the shard first passes
+  ``Comm.replicate`` over ``data``, whose backward sums the data ranks'
+  gradients. The DiT's ``run_blocks`` gathers inside the checkpointed
+  block, so under remat the full weights are gathered again in the
+  backward, never saved.
+- A trained tensor that is not cut (a bias, a norm scale, a modulation,
+  a LoRA adapter) passes ``Comm.replicate`` over the whole mesh on its
+  way into the block: every rank's gradient of it is then the sum of all
+  ranks', the whole gradient, as for the tensors used only before or
+  after the stack (embeddings, head), which every rank computes alike.
+- Quantized codes and scales stay frozen buffers, gathered as they are.
+- Optimizer state: there is no counterpart of the JAX
+  ``opt_state_specs`` (``moviigen_tpu/parallel/sharding.py:112-150``).
+  The port's ``AdamW`` keeps its moments beside each parameter it is
+  given, so a rank's optimizer over its sharded model's parameters holds
+  moments of each shard's shape: the optimizer state is sharded as the
+  weights are, with nothing to lay out.
+- Every shard is marked (``is_shard``), so that the optimizer's clip
+  can count it once over the shard axes (``train_step.mesh_global_norm``).
+- Thread ranks share every tensor that is not cut (``_rebuild``); the
+  ranks that train take their own copies of those they train
+  (``comm.own_trained``).
 """
 
 from __future__ import annotations
@@ -36,7 +65,7 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from .comm import Axis, Comm
+from .comm import AXES, Axis, Comm
 
 Spec = Dict[str, int]  # tensor name → the dimension it is cut along
 
@@ -106,35 +135,40 @@ def _rebuild(module: nn.Module, visit: Callable[[nn.Module, str], None],
     return new
 
 
-def _replace(module: nn.Module, name: str, tensor: torch.Tensor) -> None:
+def _replace(module: nn.Module, name: str, tensor: torch.Tensor,
+             requires_grad: bool = False) -> torch.Tensor:
     if name in module._parameters:
-        module._parameters[name] = nn.Parameter(tensor, requires_grad=False)
+        tensor = nn.Parameter(tensor, requires_grad=requires_grad)
+        module._parameters[name] = tensor
     else:
         module._buffers[name] = tensor
+    return tensor
 
 
 def shard_params(module: nn.Module, spec: Spec, comm: Comm,
                  axis: Axis) -> nn.Module:
     """This rank's copy of ``module``: each tensor named in ``spec`` cut
     into ``comm.axis_size(axis)`` equal slices along its dim, the slice
-    ``comm.axis_index(axis)`` kept (a copy, so the full tensor can go);
-    the other tensors shared with ``module``. Each module that holds
-    shards records them (``_shard_dims``) for ``make_param_gather``."""
+    ``comm.axis_index(axis)`` kept (a copy, so the full tensor can go; a
+    parameter keeps its ``requires_grad``; marked, see ``is_shard``); the
+    other tensors shared with ``module``. Each module that holds shards
+    records them (``_shard_dims``) for ``make_param_gather``."""
     n, i = comm.axis_size(axis), comm.axis_index(axis)
 
     def visit(new, prefix):
         dims = {}
         for name, t in list(new._parameters.items()) \
                 + list(new._buffers.items()):
-            dim = spec.get(prefix + name)
-            if dim is None or t is None:
+            dim = None if t is None else spec.get(prefix + name)
+            if dim is None:
                 continue
             if t.shape[dim] % n:
                 raise ValueError(f"{prefix}{name}: dim {dim} of "
                                  f"{tuple(t.shape)} does not split over "
                                  f"{n} ranks")
             c = t.shape[dim] // n
-            _replace(new, name, t.detach().narrow(dim, i * c, c).clone())
+            _replace(new, name, t.detach().narrow(dim, i * c, c).clone(),
+                     t.requires_grad)._shard_dim = dim
             dims[name] = dim
         if dims:
             new.__dict__["_shard_dims"] = dims
@@ -142,25 +176,60 @@ def shard_params(module: nn.Module, spec: Spec, comm: Comm,
     return _rebuild(module, visit)
 
 
+def is_shard(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a slice that ``shard_params`` cut."""
+    return getattr(t, "_shard_dim", None) is not None
+
+
+def sharded_tensors(module: nn.Module) -> Spec:
+    """The qualified names of the shards ``module`` holds (made by
+    ``shard_params``) and the dims they were cut along."""
+    return {f"{prefix}.{name}" if prefix else name: dim
+            for prefix, m in module.named_modules()
+            for name, dim in m.__dict__.get("_shard_dims", {}).items()}
+
+
+def _trained(module: nn.Module) -> bool:
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for p in module.parameters())
+
+
 def make_param_gather(comm: Comm, axis: Axis
                       ) -> Callable[[nn.Module], nn.Module]:
     """The ``param_gather_fn`` for modules made by ``shard_params``: a
     copy of the given module (a DiT or T5 block, the T5 token table) with
     every shard it holds all-gathered over ``axis`` into the full tensor,
-    the same bytes as before the cut; a module without shards is returned
+    the same bytes as before the cut. Under autograd the gathered weights
+    stay tied to their shards, and every other tensor that requires grad
+    passes ``Comm.replicate`` over the whole mesh (see the module's
+    docstring). A module with no shards and nothing to train is returned
     as it is. Every rank must gather the same modules in the same order."""
+    others = tuple(a for a in AXES if a not in Comm._axes(axis))
 
     def gather(module: nn.Module) -> nn.Module:
-        if not any("_shard_dims" in m.__dict__ for m in module.modules()):
+        trained = _trained(module)
+        if not trained and not any("_shard_dims" in m.__dict__
+                                   for m in module.modules()):
             return module
 
         def visit(new, prefix):
-            dims = new.__dict__.pop("_shard_dims", None)
-            for name, dim in (dims or {}).items():
+            dims = new.__dict__.pop("_shard_dims", None) or {}
+            for name, dim in dims.items():
                 t = new._parameters.get(name)
                 if t is None:
-                    t = new._buffers[name]
-                _replace(new, name, comm.all_gather(t, axis, dim))
+                    _replace(new, name,
+                             comm.all_gather(new._buffers[name], axis, dim))
+                elif trained and t.requires_grad:
+                    # a non-leaf tied to the shard: the gradient flows back
+                    new._parameters[name] = comm.all_gather(
+                        comm.replicate(t, others), axis, dim)
+                else:
+                    _replace(new, name, comm.all_gather(t, axis, dim))
+            if trained:
+                for name, t in new._parameters.items():
+                    if name not in dims and t is not None \
+                            and t.requires_grad:
+                        new._parameters[name] = comm.replicate(t, AXES)
 
         return _rebuild(module, visit)
 

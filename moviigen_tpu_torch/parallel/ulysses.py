@@ -23,7 +23,27 @@ axes and over ``data``, and every rank runs the head and unpatchify.
 
 With ``fsdp_params`` the DiT's block weights are held as shards
 (``sharding.shard_params``) and each block's are gathered just before it
-runs (``sharding.make_param_gather``). The forward is inference only.
+runs (``sharding.make_param_gather``).
+
+The forward is differentiable, with the gradients of JAX's ``shard_map``
+transpose: every rank ends its backward holding the whole gradient of
+each tensor it did not shard, and of each shard its own.
+
+- The embedded inputs every rank computes alike enter the stack through
+  ``Comm.shard`` (the tokens over the sequence axes, the rows over
+  ``data``), whose backward gathers the ranks' gradients, and ``e0`` and
+  the context through ``Comm.replicate`` over the sequence axes, whose
+  backward sums them;
+- the block stack's weights through the per-block gather
+  (``make_param_gather``): shards gathered, the rest replicated over the
+  mesh;
+- the residual stream leaves through ``Comm.unshard``: every rank runs
+  the head, unpatchify and the loss alike on the whole, so the backward
+  keeps each rank's slice of the gradient (a reduce-scatter there would
+  multiply the gradients by the world size).
+
+``remat`` and ``remat_group`` checkpoint the blocks as ``run_blocks``
+does, the per-block gathers inside.
 """
 
 from __future__ import annotations
@@ -105,6 +125,7 @@ def sequence_parallel_forward(
         attn_backend: str = "auto", sp_mode: str = "ulysses",
         fsdp_params: bool = False,
         residual_dtype: torch.dtype = torch.float32,
+        remat: bool = False, remat_group: int = 1,
         clip_fea: Optional[torch.Tensor] = None,
         y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The DiT forward of ``WanModel.forward`` over this rank's share of
@@ -118,12 +139,7 @@ def sequence_parallel_forward(
     The (padded) sequence length must divide by the sequence axes' size
     and the batch by ``data``. ``fsdp_params``: ``model`` holds shards
     over the sequence axes (``sharding.shard_params``), gathered per
-    block."""
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the sequence-parallel forward is inference only in the "
-            "PyTorch port (training under sequence parallelism is ROADMAP "
-            "item 11b): run it under torch.no_grad()")
+    block. ``remat``, ``remat_group``: see ``WanModel.run_blocks``."""
     cfg = model.cfg
     hybrid = "ring" in comm.axis_names
     axis = shard_axis(comm)  # the tokens' (and the weights') axes
@@ -170,14 +186,17 @@ def sequence_parallel_forward(
                  (comm.axis_index("data") + 1) * bs)
     toks = slice(comm.axis_index(axis) * ls, (comm.axis_index(axis) + 1) * ls)
 
+    xs = comm.shard(comm.shard(xt, "data", 0), axis, 1)
+    e0s = comm.replicate(comm.shard(e0, "data", 0), axis)
+    ctxs = comm.replicate(comm.shard(ctx, "data", 0), axis)
     xr = model.run_blocks(
-        xt[rows, toks].to(residual_dtype), e0[rows], ctx[rows],
+        xs.to(residual_dtype), e0s, ctxs,
         RopeTables(cos=cos[toks], sin=sin[toks]), k_lens[rows],
-        compute_dtype, attn_backend,
+        compute_dtype, attn_backend, remat=remat, remat_group=remat_group,
         self_attn_fn=_self_attn_fn(comm, sp_mode, attn_backend,
                                    compute_dtype),
-        param_gather_fn=make_param_gather(comm, axis) if fsdp_params
-        else None)
-    xr = comm.all_gather(comm.all_gather(xr, axis, 1), "data", 0)
+        param_gather_fn=make_param_gather(comm, axis)
+        if fsdp_params or torch.is_grad_enabled() else None)
+    xr = comm.unshard(comm.unshard(xr, axis, 1), "data", 0)
     out = model.head_output(xr, e)
     return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)

@@ -8,8 +8,9 @@ Counterpart of ``moviigen_tpu/training/checkpoint.py``: the layout
 - ``params.safetensors``: the trained tensors under the port's names
   (``utils/safetensors.py``): the model's parameters, or for a LoRA run
   the adapters alone (``lora.lora_state_dict``);
-- ``opt_state.pt``: the optimizer state (``torch.save``; read back with
-  ``weights_only=True``);
+- ``opt_state.safetensors``: the optimizer state, the moments and the
+  accumulated gradient under ``m/``, ``v/`` and ``acc/`` + the
+  parameter's name, the counters in the header's metadata;
 - ``meta.json``: ``{"step": N}`` plus the caller's keys (the CLI adds
   ``final``, ``lora`` and ``quant``, and for LoRA ``lora_rank``,
   ``lora_alpha`` and ``lora_dtype``, as the JAX CLI does);
@@ -18,6 +19,15 @@ Counterpart of ``moviigen_tpu/training/checkpoint.py``: the layout
   ``load_wan_checkpoint`` read; for a LoRA run
   ``lora_adapter.safetensors`` and ``adapter_config.json`` instead
   (``export_lora_safetensors``).
+
+Both ways stream one tensor at a time. Under a mesh (``comm=``) every
+rank calls them, and the files are the same: each shard is gathered over
+the shard axes just before rank 0 writes it (no rank holds more than its
+shards plus one gathered tensor), and a restore reads each tensor alone
+and keeps the rank's slice of each shard it holds. So a checkpoint
+written by a mesh resumes in one process, in the validation watcher and
+in the export, and one written by one process resumes on a mesh. Both
+ways are bit-exact.
 """
 
 from __future__ import annotations
@@ -33,14 +43,17 @@ from torch import nn
 
 from ..models.wan_convert import (EXPORT_NAME, export_wan_safetensors,
                                   wan_params_to_state_dict)
-from ..utils.safetensors import load_file, save_file
+from ..utils.safetensors import (load_tensor, read_metadata,
+                                 save_file, save_stream)
 
 CKPT_RE = re.compile(r"checkpoint-step_(\d+)$")
 PARAMS_FILE = "params.safetensors"
-OPT_FILE = "opt_state.pt"
+OPT_FILE = "opt_state.safetensors"
+_MOMENTS = ("m", "v", "acc")
 
 __all__ = ["CKPT_RE", "checkpoint_dir", "latest_checkpoint",
            "save_checkpoint", "restore_checkpoint", "read_meta",
+           "export_wan_mesh_safetensors",
            "wan_params_to_state_dict", "export_wan_safetensors",
            "lora_to_peft_state_dict", "lora_from_peft_state_dict",
            "export_lora_safetensors"]
@@ -74,30 +87,74 @@ def _named(params: Union[nn.Module, Tensors]) -> Dict[str, torch.Tensor]:
     return dict(params)
 
 
+def _mesh_layout(params, comm):
+    """(named tensors, {name: dim} of the shards among them, the shard
+    axis, the comm: a mesh of one where ``comm`` is None); named tensors
+    that are not a model are replicated."""
+    from ..parallel.comm import Comm
+    from ..parallel.sharding import shard_axis, sharded_tensors
+
+    comm = Comm(1, 1, 1, 0) if comm is None else comm
+    named = _named(params)
+    sharded = sharded_tensors(params) if isinstance(params, nn.Module) \
+        else {}
+    return named, {n: d for n, d in sharded.items() if n in named}, \
+        shard_axis(comm), comm
+
+
+def _opt_index(named, optimizer) -> Dict[str, int]:
+    """Each named tensor's place in the optimizer's parameter list."""
+    place = {id(p): i for i, p in enumerate(optimizer.params)}
+    missing = [n for n, t in named.items() if id(t) not in place]
+    if missing or len(place) != len(named):
+        raise ValueError("the optimizer's parameters are not the "
+                         f"checkpoint's tensors (e.g. {missing[:4]})")
+    return {n: place[id(t)] for n, t in named.items()}
+
+
+@torch.no_grad()
 def save_checkpoint(output_dir: str, step: int,
                     params: Union[nn.Module, Tensors], optimizer=None,
                     extra_meta: Optional[Dict[str, Any]] = None,
-                    export_safetensors: bool = False) -> str:
+                    export_safetensors: bool = False, comm=None) -> str:
     """Write ``checkpoint-step_{step}``: ``params`` (a model, whose
     parameters are saved, or named tensors such as the adapters'
     ``lora_state_dict``), the optimizer state and ``meta.json``; with
     ``export_safetensors`` also the model in the reference layout (a
-    model only)."""
+    model only). With ``comm`` it is a collective call of every rank of a
+    mesh: ``params`` is this rank's model (its shards found by
+    ``sharding.sharded_tensors``) or named tensors, replicated (the LoRA
+    adapters), and rank 0 writes. Returns the directory."""
+    if export_safetensors and not isinstance(params, nn.Module):
+        raise TypeError("export_safetensors writes a model; adapters go "
+                        "through export_lora_safetensors")
+    named, sharded, axis, comm = _mesh_layout(params, comm)
     path = checkpoint_dir(output_dir, step)
-    os.makedirs(path, exist_ok=True)
-    save_file(_named(params), os.path.join(path, PARAMS_FILE))
+    writer = comm.rank == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+    _stream_gathered(os.path.join(path, PARAMS_FILE), comm, axis, sharded,
+                     [(name, name, t) for name, t in named.items()])
     if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(path, OPT_FILE))
-    meta = {"step": step}
-    if extra_meta:
-        meta.update(extra_meta)
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump(meta, f)
+        index = _opt_index(named, optimizer)
+        state = optimizer.state_dict()
+        items = [(f"{k}/{name}", name, state[k][index[name]])
+                 for k in _MOMENTS if state[k] is not None
+                 for name in named]
+        _stream_gathered(os.path.join(path, OPT_FILE), comm, axis,
+                         sharded, items,
+                         {"count": state["count"],
+                          "mini_step": state["mini_step"],
+                          "acc": state["acc"] is not None})
+    if writer:
+        meta = {"step": step}
+        if extra_meta:
+            meta.update(extra_meta)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
     if export_safetensors:
-        if not isinstance(params, nn.Module):
-            raise TypeError("export_safetensors writes a model; adapters go "
-                            "through export_lora_safetensors")
-        export_wan_safetensors(os.path.join(path, EXPORT_NAME), params)
+        export_wan_mesh_safetensors(os.path.join(path, EXPORT_NAME), params,
+                                    comm)
     return path
 
 
@@ -110,32 +167,112 @@ def read_meta(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _stream_gathered(file, comm, axis, sharded, items, metadata=None,
+                     dtype=None, shapes=None) -> None:
+    """Rank 0 writes ``items`` (key in the file, tensor name, this rank's
+    tensor) to ``file`` in key order, each shard gathered over ``axis``
+    just before it is written, cast to ``dtype`` and reshaped to
+    ``shapes[key]`` where given; every rank takes part in the gathers."""
+    n = comm.axis_size(axis)
+    items = sorted(items, key=lambda item: item[0])
+    shapes = shapes or {}
+
+    def tensors():
+        for key, name, t in items:
+            if name in sharded:
+                t = comm.all_gather(t, axis, sharded[name])
+            if dtype is not None:
+                t = t.to(dtype)
+            yield t.reshape(shapes[key]) if key in shapes else t
+
+    if comm.rank != 0:
+        for _ in tensors():
+            pass
+        return
+    entries = []
+    for key, name, t in items:
+        shape = list(t.shape)
+        if name in sharded:
+            shape[sharded[name]] *= n
+        entries.append((key, dtype or t.dtype,
+                        tuple(shapes.get(key, shape))))
+    save_stream(file, entries, tensors(), metadata)
+
+
+@torch.no_grad()
+def export_wan_mesh_safetensors(path: str, model: nn.Module,
+                                comm=None) -> None:
+    """``export_wan_safetensors`` streamed, for a mesh rank's sharded DiT
+    (a collective call) or, with no ``comm``, for one process: the
+    reference-layout fp32 file, written by rank 0 one gathered tensor at
+    a time."""
+    from ..models.wan_convert import wan_key_map
+
+    named, sharded, axis, comm = _mesh_layout(model, comm)
+    keys = wan_key_map(model.cfg)
+    _stream_gathered(path, comm, axis, sharded,
+                     [(ref, port, named[port]) for ref, port, _ in keys],
+                     dtype=torch.float32,
+                     shapes={ref: tuple(shape) for ref, _, shape in keys
+                             if shape})
+
+
+def _restore_opt(path, named, optimizer, cut) -> None:
+    """The optimizer's state from ``opt_state.safetensors``, one tensor
+    at a time (``cut`` keeps the rank's slice of a shard's)."""
+    file = os.path.join(path, OPT_FILE)
+    meta = read_metadata(file)
+    index = _opt_index(named, optimizer)
+    state = optimizer.state_dict()  # the optimizer's own tensors
+    if (state["acc"] is not None) != (meta.get("acc") == "True"):
+        raise ValueError(f"checkpoint {path}: gradient accumulation in the "
+                         "optimizer state does not match this optimizer's")
+    for k in _MOMENTS:
+        for name in named if state[k] is not None else ():
+            state[k][index[name]].copy_(
+                cut(name, load_tensor(file, f"{k}/{name}")))
+    optimizer.count = int(meta["count"])
+    optimizer.mini_step = int(meta["mini_step"])
+
+
 @torch.no_grad()
 def restore_checkpoint(path: str, params: Union[nn.Module, Tensors],
-                       optimizer=None) -> int:
+                       optimizer=None, comm=None) -> int:
     """Load a checkpoint dir into ``params`` (a model's parameters, or
     named tensors such as a template's ``lora_state_dict``) and
     ``optimizer`` when given and saved; returns its step. Every tensor
     must be in the file with its shape, and the file may hold nothing
-    else."""
-    saved = load_file(os.path.join(path, PARAMS_FILE))
-    params = _named(params)
-    if set(saved) != set(params):
+    else. With ``comm`` (every rank of a mesh calls it) each tensor is
+    read alone and the rank keeps its slice of each shard it holds."""
+    from ..utils.safetensors import tensor_names
+
+    named, sharded, axis, comm = _mesh_layout(params, comm)
+    n, i = comm.axis_size(axis), comm.axis_index(axis)
+    file = os.path.join(path, PARAMS_FILE)
+
+    def cut(name, t):
+        if name not in sharded:
+            return t
+        dim = sharded[name]
+        c = t.shape[dim] // n
+        return t.narrow(dim, i * c, c)
+
+    saved = set(tensor_names(file))
+    if saved != set(named):
         raise ValueError(
             f"checkpoint {path}: parameters differ from the model's "
-            f"(missing {sorted(set(params) - set(saved))[:4]}, unexpected "
-            f"{sorted(set(saved) - set(params))[:4]})")
-    for name, p in params.items():
-        if saved[name].shape != p.shape:
+            f"(missing {sorted(set(named) - saved)[:4]}, unexpected "
+            f"{sorted(saved - set(named))[:4]})")
+    for name, p in named.items():
+        t = cut(name, load_tensor(file, name))
+        if t.shape != p.shape:
             raise ValueError(f"checkpoint {path}: {name} has shape "
-                             f"{tuple(saved[name].shape)}, the model "
+                             f"{tuple(t.shape)} here, the model "
                              f"{tuple(p.shape)}")
-        p.copy_(saved[name])
-    opt_path = os.path.join(path, OPT_FILE)
-    if optimizer is not None and os.path.exists(opt_path):
-        device = next(iter(params.values())).device
-        optimizer.load_state_dict(torch.load(opt_path, map_location=device,
-                                             weights_only=True))
+        p.copy_(t)
+    if optimizer is not None and os.path.exists(os.path.join(path,
+                                                             OPT_FILE)):
+        _restore_opt(path, named, optimizer, cut)
     return read_meta(path).get("step", 0)
 
 

@@ -26,6 +26,21 @@ same gradients give the same parameters:
 
 The state lives beside each parameter, in its dtype as in optax, and
 is updated in place.
+
+Under sequence parallelism (``make_train_step(..., comm=...)``) each rank
+runs the same step over its share of a ``(data, seq)`` or ``(data, ring,
+seq)`` mesh (``parallel/ulysses.py::sequence_parallel_forward`` with the
+block weights as shards gathered per block): the training analog of the
+reference's ``sp_size`` (the JAX ``make_train_step(..., mesh=...)``).
+Every rank holds the global batch and draws the same noise and u (equal
+generators, as JAX's one program draws them from one key); the SP forward
+takes each rank's rows and tokens. The SP forward's backward leaves every
+rank with the whole gradient of each tensor it does not shard and with
+its shard's of the others, so the optimizer needs nothing more but the
+norm: ``make_optimizer(..., comm=...)`` clips by ``mesh_global_norm``,
+which counts each shard once and each replicated tensor once, the same
+bits on every rank, so that every rank clips by the same factor and the
+replicas stay equal.
 """
 
 from __future__ import annotations
@@ -95,14 +110,45 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
                      "('constant', 'linear', 'cosine')")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """√(Σ x²) over every element of every tensor, fp32 (optax
-    ``global_norm``)."""
+def _sum_squares(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     total = None
     for x in tensors:
         s = torch.sum(torch.square(x.float()))
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """√(Σ x²) over every element of every tensor, fp32 (optax
+    ``global_norm``)."""
+    return torch.sqrt(_sum_squares(tensors))
+
+
+def mesh_global_norm(comm, params: Sequence[torch.Tensor]
+                     ) -> Callable[[Sequence[torch.Tensor]], torch.Tensor]:
+    """The ``global_norm`` of a mesh rank's gradients of ``params``, some
+    of them shards (``sharding.is_shard``: cut over ``shard_axis(comm)``,
+    their gradients reduced over ``data`` already): the shards' sum of
+    squares all-reduced over the shard axes, plus the replicated tensors'
+    own. Every rank gets the same bits."""
+    from ..parallel.sharding import is_shard, shard_axis
+
+    axis = shard_axis(comm)
+    flags = [is_shard(p) for p in params]
+
+    def norm(tensors):
+        tensors = list(tensors)
+        if len(tensors) != len(flags):
+            raise ValueError(f"mesh_global_norm: {len(tensors)} tensors, "
+                             f"{len(flags)} parameters")
+        dev = tensors[0].device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        shards = _sum_squares([t for t, f in zip(tensors, flags) if f])
+        rest = _sum_squares([t for t, f in zip(tensors, flags) if not f])
+        total = comm.all_reduce(zero if shards is None else shards, axis)
+        return torch.sqrt(total + (zero if rest is None else rest))
+
+    return norm
 
 
 def _f32(x: float) -> float:
@@ -124,9 +170,12 @@ class AdamW:
     parameter's own dtype, the scalars rounded to it: fp32 for the full
     model, bf16 for ``--lora_dtype bfloat16`` adapters."""
 
-    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig):
+    def __init__(self, params: Sequence[torch.Tensor], tc: TrainConfig,
+                 norm_fn: Callable[[Sequence[torch.Tensor]], torch.Tensor]
+                 = global_norm):
         self.params: List[torch.Tensor] = list(params)
         self.tc = tc
+        self.norm_fn = norm_fn  # the clip's norm of a gradient list
         self.lr = lr_schedule(tc)
         self.count = 0      # updates applied (the adam and schedule count)
         self.mini_step = 0  # micro-batches accumulated in this cycle
@@ -160,7 +209,7 @@ class AdamW:
         tc = self.tc
         b1, b2 = tc.betas
         if norm is None:
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
         clip = not bool(norm < tc.max_grad_norm)
         lr = _f32(self.lr(self.count))
         self.count += 1
@@ -196,15 +245,23 @@ class AdamW:
                 a.copy_(b)
 
 
-def make_optimizer(params: Sequence[torch.Tensor], tc: TrainConfig) -> AdamW:
-    return AdamW(params, tc)
+def make_optimizer(params: Sequence[torch.Tensor], tc: TrainConfig,
+                   comm=None) -> AdamW:
+    """``AdamW`` over ``params``; with ``comm`` (a mesh rank's, its
+    parameters from ``sharding.shard_params``) it clips by
+    ``mesh_global_norm``."""
+    params = list(params)
+    if comm is None:
+        return AdamW(params, tc)
+    return AdamW(params, tc, mesh_global_norm(comm, params))
 
 
 def make_train_step(model: WanModel, tc: TrainConfig, rope: RopeTables,
                     optimizer: AdamW, seq_len: Optional[int] = None,
                     attn_backend: str = "auto",
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    comm=None, sp_mode: Optional[str] = None):
     """Returns ``step(batch, noise=None, u=None) → metrics``: one
     micro-batch through loss, gradients and ``optimizer``, which updates
     its parameters in place: the model's, or the LoRA adapters mounted on
@@ -215,10 +272,34 @@ def make_train_step(model: WanModel, tc: TrainConfig, rope: RopeTables,
     ``tc.compute_ot`` the noise, drawn or given, is paired to the latents
     by ``ot_pair_noise`` first.
     Metrics: ``loss``, ``grad_norm`` (raw micro-batch norm) and
-    ``timestep_mean``, as 0-dim tensors."""
+    ``timestep_mean``, as 0-dim tensors.
+
+    With ``comm`` (a mesh rank) the forward is the sequence-parallel one
+    over ``model``, this rank's copy (``sharding.shard_params`` of the
+    DiT, the block weights cut over the sequence axes), ``sp_mode``
+    defaulting to ``usp`` on a (data, ring, seq) mesh and ``ulysses``
+    otherwise, as in JAX (train_step.py:142-145); on a mesh whose sequence
+    axes are 1 that is data parallelism. The optimizer must then clip by
+    the mesh's norm (``make_optimizer(..., comm=comm)``)."""
     sigmas_tab = train_schedule(tc.num_train_timesteps, tc.schedule_shift)[0]
     rdt = getattr(torch, tc.residual_dtype)
     params = optimizer.params
+    forward = model
+    if comm is not None:
+        from ..parallel.sharding import is_shard
+        from ..parallel.ulysses import sequence_parallel_forward
+
+        if sp_mode is None:
+            sp_mode = "usp" if "ring" in comm.axis_names else "ulysses"
+        if optimizer.norm_fn is global_norm and any(map(is_shard, params)):
+            raise ValueError("make_train_step: the optimizer trains shards "
+                             "but clips by one rank's norm; build it with "
+                             "make_optimizer(..., comm=comm)")
+
+        def forward(noisy, t, context, rope, **kw):
+            return sequence_parallel_forward(
+                model, noisy, t, context, rope, comm, sp_mode=sp_mode,
+                fsdp_params=True, **kw)
 
     def step(batch, noise=None, u=None):
         latents, context = batch["latents"], batch["context"]
@@ -239,14 +320,14 @@ def make_train_step(model: WanModel, tc: TrainConfig, rope: RopeTables,
                                       tc.num_train_timesteps)
         noisy = flow_match_noisy(latents, noise, sigmas)
         t = sigmas * tc.num_train_timesteps
-        pred = model(noisy, t, context, rope, seq_len=seq_len,
-                     compute_dtype=compute_dtype, attn_backend=attn_backend,
-                     residual_dtype=rdt, remat=tc.remat,
-                     remat_group=tc.remat_group)
+        pred = forward(noisy, t, context, rope, seq_len=seq_len,
+                       compute_dtype=compute_dtype, attn_backend=attn_backend,
+                       residual_dtype=rdt, remat=tc.remat,
+                       remat_group=tc.remat_group)
         target = flow_match_target(latents, noise)
         loss = torch.mean(torch.square(pred.float() - target.float()))
         grads = torch.autograd.grad(loss, params)
-        gnorm = global_norm(grads)
+        gnorm = optimizer.norm_fn(grads)
         optimizer.step(grads, gnorm)
         return {"loss": loss.detach(), "grad_norm": gnorm,
                 "timestep_mean": t.mean()}

@@ -21,7 +21,8 @@ import json
 import os
 import struct
 import sys
-from typing import Dict, Optional
+import threading
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,31 +95,86 @@ def save_file(tensors: Dict[str, torch.Tensor], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
     """Write ``tensors`` (any device; dtypes as ``DTYPES``) to ``path``,
     with ``metadata`` (str → str) in the header."""
+    names = sorted(tensors)
+    save_stream(path, [(n, tensors[n].dtype, tuple(tensors[n].shape))
+                       for n in names], (tensors[n] for n in names),
+                metadata)
+
+
+def save_stream(path: str, entries: Sequence[Tuple[str, torch.dtype,
+                                                   Tuple[int, ...]]],
+                tensors: Iterable[torch.Tensor],
+                metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write a file whose header lists ``entries`` (name, dtype, shape),
+    in name order, and then the bytes of ``tensors``, taken one at a time
+    in the same order: the writer never holds more than one tensor, so a
+    caller can make each (a gather across ranks) just before it is
+    written. Each tensor must have its entry's dtype and shape."""
     header: Dict[str, object] = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    names = sorted(tensors)
+    names = [e[0] for e in entries]
+    if names != sorted(names) or len(set(names)) != len(names):
+        raise ValueError("safetensors: entries must be in name order, "
+                         "each name once")
     offset = 0
-    for name in names:
-        t = tensors[name]
-        if t.dtype not in _NAMES:
+    for name, dtype, shape in entries:
+        if dtype not in _NAMES:
             raise ValueError(f"safetensors: tensor {name!r} has dtype "
-                             f"{t.dtype}, not one of {sorted(DTYPES)}")
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                             f"{dtype}, not one of {sorted(DTYPES)}")
+        count = 1
+        for d in shape:
+            count *= d
+        nbytes = count * dtype.itemsize
+        header[name] = {"dtype": _NAMES[dtype], "shape": list(shape),
                         "data_offsets": [offset, offset + nbytes]}
         offset += nbytes
     raw = json.dumps(header, separators=(",", ":")).encode("utf-8")
     raw += b" " * (-len(raw) % 8)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(struct.pack("<Q", len(raw)))
-        f.write(raw)
-        for name in names:
-            t = tensors[name].detach().contiguous().cpu().reshape(-1)
-            if t.numel():
-                f.write(t.view(torch.uint8).numpy().tobytes())
-    os.replace(tmp, path)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            it = iter(tensors)
+            for name, dtype, shape in entries:
+                t = next(it)
+                if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+                    raise ValueError(
+                        f"safetensors: tensor {name!r} is {t.dtype} "
+                        f"{tuple(t.shape)}, its entry {dtype} "
+                        f"{tuple(shape)}")
+                t = t.detach().contiguous().cpu().reshape(-1)
+                if t.numel():
+                    f.write(t.view(torch.uint8).numpy().tobytes())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_tensor(path: str, name: str, device=None) -> torch.Tensor:
+    """One tensor of a file, read alone (the others are not read)."""
+    with open(path, "rb") as f:
+        header, start = _read_header(f)
+        if name not in header or name == "__metadata__":
+            raise KeyError(f"safetensors: {path} has no tensor {name!r}")
+        info = header[name]
+        dtype = DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        f.seek(start + begin)
+        buf = bytearray(f.read(end - begin))
+    shape = list(info["shape"])
+    t = (torch.frombuffer(buf, dtype=dtype).reshape(shape) if buf
+         else torch.empty(shape, dtype=dtype))
+    return t if device is None else t.to(device)
+
+
+def tensor_names(path: str) -> list:
+    """The names of a file's tensors, in the header's order."""
+    with open(path, "rb") as f:
+        header, _ = _read_header(f)
+    return [n for n in header if n != "__metadata__"]
 
 
 def load_sharded(directory: str, pattern: str,

@@ -935,3 +935,180 @@ def test_t5_decoder_on_cuda_matches_the_cpu(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     _close(got.cpu(), want, tol=1e-4)
+
+
+# ------------------------------------------- sequence-parallel training
+
+
+def _ring_global_stats(q, k, v, k_lens, shards):
+    """Each query shard's merged ring forward over every key shard (the
+    stats kernel per pair, ``ring_merge``): (out in q's dtype, m base 2,
+    l), the stats [B, N, Lq] contiguous as the backward takes them."""
+    from moviigen_tpu_torch.parallel import ring
+
+    s = q.shape[1] // shards
+    out = []
+    for i in range(shards):
+        qi = q[:, i * s:(i + 1) * s].contiguous()
+        acc = (torch.zeros(qi.shape, device="cuda"),
+               torch.full(qi.shape[:3], -1e30, device="cuda"),
+               torch.zeros(qi.shape[:3], device="cuda"))
+        for j in range(shards):
+            part = tfa.flash_attention_with_stats(
+                qi, k[:, j * s:(j + 1) * s].contiguous(),
+                v[:, j * s:(j + 1) * s].contiguous(),
+                ring._local_klens(k_lens, j, s))
+            acc = ring.ring_merge(*acc, *part)
+        o, m, l = acc
+        out.append((o.to(q.dtype),
+                    (m * tfa.LOG2E).transpose(1, 2).contiguous(),
+                    l.transpose(1, 2).contiguous()))
+    return out
+
+
+def test_ring_pair_backward_kernels_with_global_stats(cuda):
+    """The ring's backward pieces on the card: the dKV and dQ kernels on
+    each (query shard, key shard) pair with the merged global stats and
+    the held shard's own key count, against the plain twin on the same
+    inputs (``GRAD_REL_TOL``); the pair whose key shard is empty (batch
+    entry 1, k_len 0) gives exactly zero in both; and the pairs' sums
+    (dq over key shards, dk/dv over query shards) equal the one-shot
+    backward kernels' over the whole sequence with the same stats."""
+    from moviigen_tpu_torch.parallel import ring
+
+    shards, s = 2, 1000
+    q, k, v, do = _qkv(cuda, 2, 2 * s, 2 * s) + [torch.randn(
+        2, 2 * s, 8, 128, generator=cuda, device="cuda",
+        dtype=torch.bfloat16)]
+    k_lens = torch.tensor([2 * s, s], device="cuda", dtype=torch.int32)
+    stats = _ring_global_stats(q, k, v, k_lens, shards)
+    cut = [[x[:, i * s:(i + 1) * s].contiguous() for i in range(shards)]
+           for x in (q, k, v, do)]
+    sums = {"dq": [0.0] * shards, "dk": [0.0] * shards,
+            "dv": [0.0] * shards}
+    for i in range(shards):
+        o, m2, l2 = stats[i]
+        for j in range(shards):
+            kl = ring._local_klens(k_lens, j, s)
+            args = (cut[0][i], cut[1][j], cut[2][j], kl, o, m2, l2,
+                    cut[3][i])
+            got = tfa.flash_bwd_cuda(*args)
+            want = tfa.flash_bwd_plain(*args)
+            for g, w in zip(got, want):
+                _close(g, w, GRAD_REL_TOL)
+            if j == 1:  # batch entry 1 holds no key of shard 1
+                for g, w in zip(got, want):
+                    assert not bool(g[1].any()) and not bool(w[1].any())
+            sums["dq"][i] = sums["dq"][i] + got[0].float()
+            sums["dk"][j] = sums["dk"][j] + got[1].float()
+            sums["dv"][j] = sums["dv"][j] + got[2].float()
+    o = torch.cat([st[0] for st in stats], dim=1)
+    m2 = torch.cat([st[1] for st in stats], dim=2).contiguous()
+    l2 = torch.cat([st[2] for st in stats], dim=2).contiguous()
+    dq, dk, dv = tfa.flash_bwd_cuda(q, k, v, k_lens, o, m2, l2, do)
+    for name, whole in (("dq", dq), ("dk", dk), ("dv", dv)):
+        _close(torch.cat(sums[name], dim=1), whole.float(), GRAD_REL_TOL)
+
+
+def test_ring_attention_backward_on_thread_ranks(cuda):
+    """``RingAttention`` under autograd over 4 thread ranks on the card:
+    the ranks' backward passes run on their own threads (each rank's
+    first backward collective would otherwise wait for a peer queued
+    behind it on the device's one autograd thread). dq, dk, dv against
+    the one-shot ``FlashAttention`` backward within ``GRAD_REL_TOL``; 16
+    stats, 16 dKV and 16 dQ launches (4 pairs a rank)."""
+    from moviigen_tpu_torch.parallel import ring
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+
+    q, k, v = _qkv(cuda, 2, 2000, 2000, requires_grad=True)
+    do = torch.randn(q.shape, generator=cuda, device="cuda",
+                     dtype=torch.bfloat16)
+    k_lens = torch.tensor([2000, 1200], device="cuda", dtype=torch.int32)
+    want = torch.autograd.grad(tfa.flash_attention(q, k, v, k_lens),
+                               (q, k, v), do)
+    shards = [x.detach().chunk(4, dim=1) for x in (q, k, v, do)]
+
+    def rank(c):
+        xs = [s[c.rank].contiguous().requires_grad_() for s in shards[:3]]
+        out = ring.ring_self_attention(*xs, k_lens, c)
+        return torch.autograd.grad(out, xs, shards[3][c.rank])
+
+    tfa.reset_launch_counts()
+    outs = run_ranks(rank, thread_mesh(seq=4))
+    torch.cuda.synchronize()
+    counts = tfa.launch_counts()
+    assert (counts["stats_launches"], counts["dkv_launches"],
+            counts["dq_launches"]) == (16, 16, 16)
+    for i in range(3):
+        _close(torch.cat([o[i] for o in outs], dim=1), want[i],
+               GRAD_REL_TOL)
+
+
+@pytest.mark.parametrize("sp_mode,mesh", [
+    ("ulysses", dict(seq=2)), ("ring", dict(seq=2)),
+    ("usp", dict(ring=2, seq=2))])
+def test_sp_train_step_on_thread_ranks_matches_one_process(cuda, sp_mode,
+                                                           mesh):
+    """The SP train step on the card over thread ranks (block weights as
+    shards gathered per block, remat), a 2-block DiT at head_dim 128,
+    against the one-process step from the same weights, noise and u, bf16
+    compute: every gradient within 3e-2 of its norm (as the LoRA test
+    above: bf16 rounding in attention, rounded again by every later bf16
+    product), the loss within 5e-3."""
+    from moviigen_tpu_torch.configs import WAN_CONFIGS
+    from moviigen_tpu_torch.models.wan_model import WanModel
+    from moviigen_tpu_torch.ops.rope import rope_3d_freqs
+    from moviigen_tpu_torch.parallel import sharding
+    from moviigen_tpu_torch.parallel.comm import (own_trained, run_ranks,
+                                                  thread_mesh)
+    from moviigen_tpu_torch.training import TrainConfig, make_train_step
+    from moviigen_tpu_torch.training.train_step import (global_norm,
+                                                        mesh_global_norm)
+
+    class Grads:
+        def __init__(self, m, comm=None):
+            self.names = [n for n, _ in m.named_parameters()]
+            self.params = list(m.parameters())
+            self.norm_fn = global_norm if comm is None else \
+                mesh_global_norm(comm, self.params)
+
+        def step(self, grads, norm=None):
+            self.grads = dict(zip(self.names, grads))
+            return True
+
+    cfg = WAN_CONFIGS["t2v-tiny"].model.replace(dim=256, num_heads=2,
+                                                ffn_dim=512)
+    model = WanModel(cfg, dtype=torch.float32, device="cuda") \
+        .init_weights(cuda)
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.1, generator=cuda)
+    batch = {"latents": torch.randn(1, cfg.in_dim, 4, 16, 16, generator=cuda,
+                                    device="cuda"),
+             "context": torch.randn(1, cfg.text_len, cfg.text_dim,
+                                    generator=cuda, device="cuda")}
+    noise = torch.randn(batch["latents"].shape, generator=cuda,
+                        device="cuda")
+    u = torch.tensor([0.4], device="cuda")
+    rope = rope_3d_freqs((4, 8, 8), cfg.head_dim, device="cuda")
+    tc = TrainConfig(remat=True)
+    cap = Grads(model)
+    want = make_train_step(model, tc, rope, cap)(batch, noise=noise, u=u)
+
+    def rank(c):
+        m = own_trained(sharding.shard_params(
+            model, sharding.dit_param_specs(model), c,
+            sharding.shard_axis(c)))
+        g = Grads(m, c)
+        metrics = make_train_step(m, tc, rope, g, comm=c, sp_mode=sp_mode)(
+            batch, noise=noise, u=u)
+        return metrics, g.grads, sharding.sharded_tensors(m)
+
+    outs = run_ranks(rank, thread_mesh(**mesh))
+    assert float(outs[0][0]["loss"]) == pytest.approx(
+        float(want["loss"]), rel=5e-3)
+    dims = outs[0][2]
+    for name, w in cap.grads.items():
+        g = (torch.cat([o[1][name] for o in outs], dim=dims[name])
+             if name in dims else outs[0][1][name])
+        assert bool(w.abs().max() > 0), name
+        assert float((g - w).norm() / w.norm()) <= 3e-2, name

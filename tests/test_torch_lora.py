@@ -32,6 +32,7 @@ from moviigen_tpu_torch.ops.rope import rope_3d_freqs
 from moviigen_tpu_torch.training import (TrainConfig, make_optimizer,
                                          make_train_step)
 from moviigen_tpu_torch.training import lora as tlora
+from moviigen_tpu_torch.training.train_step import global_norm
 
 from test_torch_training import (CFG, GRID, JCFG, jax_draws, make_batch,
                                  norm_rel)
@@ -292,6 +293,7 @@ class GradCapture:
         self.names = list(tlora.lora_state_dict(adapters))
         self.params = list(tlora.lora_parameters(adapters))
         self.grads = None
+        self.norm_fn = global_norm
 
     def step(self, grads, norm=None):
         self.grads = dict(zip(self.names, grads))

@@ -224,12 +224,6 @@ def test_ring_merge_of_an_empty_partial():
     assert torch.equal(got[1], m) and torch.equal(got[2], l)
 
 
-def test_ring_refuses_autograd():
-    q = torch.zeros(1, 4, 1, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="11b"):
-        ring.ring_self_attention(q, q, q, None, thread_mesh()[0])
-
-
 @pytest.mark.parametrize("case", ["heads", "usp_mesh", "seq_len", "mode"])
 def test_sp_errors_match_jax(setup, case):
     """What JAX's ``sequence_parallel_forward`` asserts, the port raises

@@ -31,6 +31,7 @@ from moviigen_tpu_torch.ops.rope import rope_3d_freqs
 from moviigen_tpu_torch.training import (TrainConfig, make_optimizer,
                                          make_train_step)
 from moviigen_tpu_torch.training import data as tdata
+from moviigen_tpu_torch.training.train_step import global_norm
 
 JCFG = JAX_CONFIGS["t2v-tiny"].model
 CFG = WAN_CONFIGS["t2v-tiny"].model
@@ -89,6 +90,7 @@ class GradCapture:
         self.params = list(model.parameters())
         self.names = [n for n, _ in model.named_parameters()]
         self.grads = None
+        self.norm_fn = global_norm
 
     def step(self, grads, norm=None):
         self.grads = dict(zip(self.names, grads))
@@ -511,13 +513,12 @@ def test_finetune_cli_end_to_end(tiny_dataset, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--sp_size", "2"], ["--ffn_bwd_chunk", "64"],
-    ["--attn_bwd_chunk", "64"],
+    ["--ffn_bwd_chunk", "64"], ["--attn_bwd_chunk", "64"],
 ])
 def test_finetune_cli_refuses_later_slices(flag, tiny_dataset):
-    """``--sp_size`` > 1 comes with a later slice (ROADMAP item 11b); the
-    memory knobs are not ported, by design. Both refusals name the ROADMAP.
-    (``--profile_steps`` is ported: tests/test_torch_utils.py.)"""
+    """The memory knobs are not ported, by design; the refusal names the
+    ROADMAP. (``--profile_steps`` is ported: tests/test_torch_utils.py;
+    ``--sp_size``: tests/test_torch_sp_training_dist.py.)"""
     from moviigen_tpu_torch.cli.finetune import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
