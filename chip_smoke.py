@@ -112,7 +112,23 @@ Phases:
     against the one-process step, launches counted, seconds and peak GiB;
     (c) ``cli.finetune --sp_size 1`` over NCCL at world size 1, 2 steps,
     its mesh checkpoint read back; (d) the 14B QLoRA step (int8 base,
-    depth cut) in Ulysses sp 2 against one process, the base bit-equal.
+    depth cut) in Ulysses sp 2 against one process, the base bit-equal;
+17. (only when asked: ``--phases 17``; four cards) the runs of
+    ``tools/sp_serve_cards.py`` (the 14B served over 4 ranks, one per
+    card over NCCL: Ulysses with per-block gathers, ring, USP, data 2 ×
+    seq 2, int4 and W8A8, and ``scripts/inference.sh``'s 1280×720×81
+    request) and of ``tools/sp_train_cards.py`` (``finetune --sp_size 4``
+    of the 14B in full, the SP step in Ulysses, ring and USP against one
+    card, data 2 × seq 2 with accumulation, a stop and a resume), each
+    against one card; raises with fewer than four cards;
+18. the kernels at the shapes those four-card runs launch on each rank,
+    on this one card, against their plain twins: the forward (S4's half
+    CFG pair, S6's 75,600 tokens over 10 heads and its 18,900-row cross
+    shard), the stats forward, dKV and dQ of T1-T5 (10, 6 and 3 heads over
+    32,760 tokens; the 8,190- and 16,380-row cross shards), the ring's
+    pairs of 4 and 2 key shards at 12, 6, 40 and 20 heads with an empty
+    shard, the int8 GEMM and the activation quantization at S5's 3,900
+    rows.
 
 Any failure ends the run with a non-zero exit. The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it lists the
@@ -674,13 +690,14 @@ def train_kernel_cases(report, cases=None, heads=TRAIN_HEADS,
     report[key] = rows
 
 
-def int8_kernel_cases(report):
+def int8_kernel_cases(report, cases=None, key="int8_cases", phase="2"):
     """The int8 GEMM at the W8A8 path's shapes, in its three bias modes,
     against its plain version (bit for bit), beside its design before the
     Hopper redesign; then the activation-quantization kernel. Yardsticks
     the port never calls: ``torch._int_mm`` plus the eager rescale (the
     library's route to the same function) and the bf16 ``F.linear`` of
-    the same layer (what W8A8 competes with)."""
+    the same layer (what W8A8 competes with). With ``cases``: the same at
+    other shapes, rows in ``report[key]``."""
     import torch
     import torch.nn.functional as F
 
@@ -690,7 +707,7 @@ def int8_kernel_cases(report):
                                                      quantize_linear_int4)
 
     rows = []
-    for i, (name, m, k, n) in enumerate(INT8_CASES):
+    for i, (name, m, k, n) in enumerate(cases or INT8_CASES):
         gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
         x = torch.randn(m, k, generator=gen, device=DEVICE,
                         dtype=torch.bfloat16)
@@ -743,7 +760,7 @@ def int8_kernel_cases(report):
             lib_ms = cuda_ms(library)
             int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wt))
         except RuntimeError as e:  # a yardstick only: some shapes it refuses
-            log(f"phase 2: int8 {name}: torch._int_mm refused: {e}")
+            log(f"phase {phase}: int8 {name}: torch._int_mm refused: {e}")
             same = lib_ms = int_mm_ms = None
         wb = torch.randn(n, k, generator=gen, device=DEVICE,
                          dtype=torch.bfloat16)
@@ -768,24 +785,26 @@ def int8_kernel_cases(report):
                    tops=ops / ms / 1e9)
         if name.startswith("b_"):  # the widest shape: clocks and power
             row["sm_mhz"], row["power_w"] = clocks_under_load(kernel, ms)
-        log("phase 2: int8 " + json.dumps(row))
+        log(f"phase {phase}: int8 " + json.dumps(row))
         rows.append(row)
         del x, xq, sx, wq, wt, wb
         torch.cuda.empty_cache()
-    report["int8_cases"] = rows
-    quantize_kernel_cases(report)
+    report[key] = rows
+    if cases is None:
+        quantize_kernel_cases(report)
 
 
-def quantize_kernel_cases(report):
-    """The activation-quantization kernel at the W8A8 path's shapes
-    against its plain version (bit for bit). No single PyTorch call
-    computes this function, so there is no library yardstick."""
+def quantize_kernel_cases(report, cases=None, key="quantize_cases",
+                          phase="2"):
+    """The activation-quantization kernel at the W8A8 path's shapes (or
+    ``cases``) against its plain version (bit for bit). No single PyTorch
+    call computes this function, so there is no library yardstick."""
     import torch
 
     from moviigen_tpu_torch.ops import quantization as tq
 
     rows = []
-    for i, (m, k) in enumerate(QUANT_CASES):
+    for i, (m, k) in enumerate(cases or QUANT_CASES):
         gen = torch.Generator(device=DEVICE).manual_seed(300 + i)
         x = torch.randn(m, k, generator=gen, device=DEVICE,
                         dtype=torch.bfloat16)
@@ -810,11 +829,11 @@ def quantize_kernel_cases(report):
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_share=bound_ms / ms, library_ms=None,
                    library="none: no single PyTorch call computes it")
-        log("phase 2: quantize " + json.dumps(row))
+        log(f"phase {phase}: quantize " + json.dumps(row))
         rows.append(row)
         del x, got_q, got_s, want_q, want_s
         torch.cuda.empty_cache()
-    report["quantize_cases"] = rows
+    report[key] = rows
 
 
 def _sp_launches(report, key):
@@ -842,8 +861,9 @@ def _spt_launches(report, key):
 
 
 def kernels_line(report):
-    cases = report["flash_cases"] + report.get("sp_kernels", {}).get("fwd",
-                                                                     [])
+    cases = report["flash_cases"] \
+        + report.get("sp_kernels", {}).get("fwd", []) \
+        + report.get("cards_kernels", {}).get("fwd", [])
     main = cases[0]
     entries = [{
         "name": "flash_fwd",
@@ -859,6 +879,7 @@ def kernels_line(report):
             "i2v request (phase 12c)": report.get("i2v_launches", {}).get(
                 "launches", 0),
             **_sp_launches(report, "launches"),
+            **_cards_launches(report, "launches"),
             "gradio app requests (phase 14c)": report.get(
                 "app_launches", {}).get("launches", 0),
             "generate --use_prompt_extend (phase 14d)": report.get(
@@ -899,7 +920,7 @@ def kernels_line(report):
             "library_ms": main32["library_ms"],
             "cases": f32,
         })
-    int8 = report.get("int8_cases")
+    int8 = report.get("int8_cases", []) + report.get("cards_int8", [])
     if int8:
         main8 = int8[0]  # the attention projections of the first request
         entries.append({
@@ -919,7 +940,8 @@ def kernels_line(report):
                         "int8_gemm_launches", 0),
                 "w8a8 fsdp sp2 (phase 13c)": report.get("sp_fsdp", {}).get(
                     "w8a8", {}).get("launches", {}).get(
-                        "int8_gemm_launches", 0)},
+                        "int8_gemm_launches", 0),
+                **_cards_launches(report, "int8_gemm_launches")},
             "max_abs_err": max(c["max_abs_err"] for c in int8),
             "ms": main8["ms"],
             "before_redesign_ms": main8["before_redesign_ms"],
@@ -929,7 +951,8 @@ def kernels_line(report):
             "bf16_linear_ms": main8["bf16_linear_ms"],
             "cases": int8,
         })
-        quant = report["quantize_cases"]
+        quant = report.get("quantize_cases", []) \
+            + report.get("cards_quantize", [])
         mainq = quant[0]  # the attention input of the first request
         entries.append({
             "name": "quantize_act",
@@ -949,7 +972,8 @@ def kernels_line(report):
                         "quantize_launches", 0),
                 "w8a8 fsdp sp2 (phase 13c)": report.get("sp_fsdp", {}).get(
                     "w8a8", {}).get("launches", {}).get(
-                        "quantize_launches", 0)},
+                        "quantize_launches", 0),
+                **_cards_launches(report, "quantize_launches")},
             "max_abs_err": max(c["max_abs_err"] for c in quant),
             "ms": mainq["ms"], "plain_ms": mainq["plain_ms"],
             "bound_ms": mainq["bound_ms"], "bound_by": mainq["bound_by"],
@@ -957,8 +981,6 @@ def kernels_line(report):
             "cases": quant,
         })
     train = report.get("train_cases", []) + report.get("train14_cases", [])
-    if not train:
-        return {"kernels": entries}
     counts = report.get("train_launches", {})
 
     def by_path(key):
@@ -975,7 +997,9 @@ def kernels_line(report):
     bwd = [c for c in train if "kernel" not in c]
     if "sp_kernels" in report:  # 13b: the ring groups of the SP modes
         stats = stats + report["sp_kernels"]["stats"]
-    for c in report.get("sp_train_pairs", []):  # 16a: the ring's pairs
+    # 16a: the ring's pairs; 18: the four-card runs' shapes
+    for c in report.get("sp_train_pairs", []) \
+            + report.get("cards_kernels", {}).get("train", []):
         stats.append(dict(
             case=c["case"], kernel="stats", N=c["N"],
             max_abs_err=c["stats_max_abs_err"], rel_err=c["stats_rel_err"],
@@ -984,6 +1008,8 @@ def kernels_line(report):
             library_ms=c["stats_library_ms"], library=c["stats_library"],
             before_redesign_ms=None))
         bwd.append(c)
+    if not stats or not bwd:
+        return {"kernels": entries}
     # self-attention at 32,760 tokens: the 1.3B row (N = 12) when phase 2
     # ran, else the 14B one (N = 40)
     s, bmain = stats[0], bwd[0]
@@ -995,7 +1021,8 @@ def kernels_line(report):
         "launches": counts.get("stats_launches", 0),
         "launches_by_path": {**by_path("stats_launches"),
                              **_sp_launches(report, "stats_launches"),
-                             **_spt_launches(report, "stats_launches")},
+                             **_spt_launches(report, "stats_launches"),
+                             **_cards_launches(report, "stats_launches")},
         "max_abs_err": max(c["max_abs_err"] for c in stats),
         "ms": s["ms"], "before_redesign_ms": s["before_redesign_ms"],
         "plain_ms": s["plain_ms"],
@@ -1013,7 +1040,8 @@ def kernels_line(report):
             "launches": counts.get(f"{key}_launches", 0),
             "launches_by_path": {
                 **by_path(f"{key}_launches"),
-                **_spt_launches(report, f"{key}_launches")},
+                **_spt_launches(report, f"{key}_launches"),
+                **_cards_launches(report, f"{key}_launches")},
             "max_abs_err": max(c["max_abs_err"][g] for c in bwd
                                for g in grads),
             "ms": bmain[f"{key}_ms"], "plain_ms": bmain["plain_ms"],
@@ -3189,9 +3217,10 @@ def _sp_kernel_shapes():
     return sorted(heads), sorted(rings), sorted(rows)
 
 
-def _sp_fwd_case(name, q, k, v):
+def _sp_fwd_case(name, q, k, v, plain_iters=3):
     """The forward kernel against its plain twin on the same inputs, with
-    its time, the plain twin's, SDPA's and the bound."""
+    its time, the plain twin's (median of ``plain_iters``), SDPA's and the
+    bound."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -3207,7 +3236,7 @@ def _sp_fwd_case(name, q, k, v):
                 rel_err=rel,
                 ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                 iters=3, warmup=1),
+                                 iters=plain_iters, warmup=1),
                 library_ms=cuda_ms(lambda: torch.nn.functional
                                    .scaled_dot_product_attention(qt, kt,
                                                                  vt)),
@@ -4126,8 +4155,10 @@ class _GradsOf:
         return True
 
 
-def _sp_pair_case(n, gen):
-    """The ring's pair kernels at ``n`` heads: for each query shard the
+def _sp_pair_case(n, gen, b=2, l=None, shards=None):
+    """The ring's pair kernels at ``n`` heads (``b`` batch entries,
+    ``l`` tokens cut into ``shards``; by default phase 16a's): for each
+    query shard the
     global stats from the ring's own forward (stats kernel per key shard,
     ``ring_merge``), then each pair's dKV and dQ with those stats and the
     held shard's key count, against the plain twin on the same inputs; an
@@ -4140,13 +4171,17 @@ def _sp_pair_case(n, gen):
     from moviigen_tpu_torch.ops import flash_attention as fa
     from moviigen_tpu_torch.parallel import ring
 
-    b, l, shards = 2, SPT_TOKENS, SPT_SHARDS
+    l = l or SPT_TOKENS
+    shards = shards or SPT_SHARDS
     s = l // shards
     name = f"t_ring_pair_B{b}_L{s}x{shards}_N{n}"
     q, k, v, do = (torch.randn(b, l, n, HEAD_DIM, generator=gen,
                                device=DEVICE, dtype=torch.bfloat16)
                    for _ in range(4))
-    k_lens = torch.tensor([l, l - s], dtype=torch.int32, device=DEVICE)
+    # the last batch entry's last key shard empty
+    last = b - 1
+    k_lens = torch.tensor([l] * last + [l - s], dtype=torch.int32,
+                          device=DEVICE)
     cut = [[x[:, i * s:(i + 1) * s].contiguous() for i in range(shards)]
            for x in (q, k, v, do)]
     errs, stats_errs, sums = {}, [], {"dq": {}, "dk": {}, "dv": {}}
@@ -4179,8 +4214,8 @@ def _sp_pair_case(n, gen):
             for what, g, w in zip(("dq", "dk", "dv"), got, want):
                 errs[f"({i}, {j}) {what}"] = _check(
                     f"{name} pair ({i}, {j})", what, g, w, GRAD_REL_TOL)
-                if j == shards - 1 and (bool(g[1].any()) or bool(
-                        w[1].any())):
+                if j == shards - 1 and (bool(g[last].any()) or bool(
+                        w[last].any())):
                     raise RuntimeError(f"{name} pair ({i}, {j}): {what} of "
                                        "the empty key shard is not zero")
             for what, g, key in (("dq", got[0], i), ("dk", got[1], j),
@@ -4217,7 +4252,7 @@ def _sp_pair_case(n, gen):
         b, s, s, [s] * b, n=n)
     row = dict(
         case=name, B=b, Lq=s, Lk=s, N=n, shards=shards,
-        k_lens=k_lens.tolist(), empty_pair=[shards - 1, "batch 1"],
+        k_lens=k_lens.tolist(), empty_pair=[shards - 1, f"batch {last}"],
         max_abs_err={w: max(e[0] for key, e in errs.items()
                             if key.endswith(w)) for w in ("dq", "dk", "dv")},
         rel_err={w: max(e[1] for key, e in errs.items()
@@ -4640,19 +4675,225 @@ def phase_sp_train(report):
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 18: the kernels at the shapes the four-card runs of
+# tools/sp_serve_cards.py and tools/sp_train_cards.py launch on each rank
+# (4 ranks; t2v-14B 40 heads, t2v-1.3B 12; head dim 128), each against its
+# plain twin. Phase 13b already holds the r1 shapes of S1, S2, S3 and S5
+# (u2, x2, s2, s3).
+CARDS = 4
+CARDS_FWD = [
+    # name, B, Lq, Lk, N
+    # S4: data 2 x seq 2, each data rank half the CFG pair, Ulysses 2
+    ("c_s4_self_B1_L7800_N20", 1, 7800, 7800, 20),
+    ("c_s4_cross_B1_Lq3900_Lk512", 1, 3900, 512, 40),
+    # S6: 1280x720x81 (75,600 tokens) under Ulysses 4, CFG batched
+    ("c_s6_self_B2_L75600_N10", 2, 75600, 75600, 10),
+    ("c_s6_cross_B2_Lq18900_Lk512", 2, 18900, 512, 40),
+]
+CARDS_TRAIN = [
+    # name, B, Lq, Lk, N: the stats forward, dKV and dQ at 32,760 tokens
+    # T1 / T2: t2v-14B, Ulysses 4
+    ("c_t1_self_B1_L32760_N10", 1, 32760, 32760, 10),
+    ("c_t1_cross_B1_Lq8190_Lk512_N40", 1, 8190, 512, 40),
+    # T3 (ring 4, USP 2 x 2) and T5 (Ulysses 4): t2v-1.3B, 4 query shards
+    ("c_t3_cross_B1_Lq8190_Lk512_N12", 1, 8190, 512, 12),
+    # T4: t2v-1.3B, data 2 x seq 2, Ulysses 2
+    ("c_t4_self_B1_L32760_N6", 1, 32760, 32760, 6),
+    ("c_t4_cross_B1_Lq16380_Lk512_N12", 1, 16380, 512, 12),
+    # T5: t2v-1.3B, Ulysses 4
+    ("c_t5_self_B1_L32760_N3", 1, 32760, 32760, 3),
+]
+CARDS_PAIRS = [
+    # B, tokens, key shards, N: the ring's pairs with the global stats
+    (1, 32760, 4, 12),  # T3 ring 4 (t2v-1.3B)
+    (1, 32760, 2, 6),   # T3 USP 2 x 2: Ulysses 2, then a ring of 2
+    (1, 32760, 4, 40),  # t2v-14B in ring 4 at 32,760 tokens
+    (1, 32760, 2, 20),  # t2v-14B in USP 2 x 2
+]
+CARDS_INT8 = [
+    # S5 w8a8: M = 2 x 7,800 / 4 tokens a rank
+    ("c_s5_attn_M3900_K5120_N5120", 3900, 5120, 5120),
+    ("c_s5_ffn1_M3900_K5120_N13824", 3900, 5120, 13824),
+    ("c_s5_ffn2_M3900_K13824_N5120", 3900, 13824, 5120),
+]
+CARDS_QUANT = [(3900, 5120), (3900, 13824)]
+# phase 17: seconds each tool may take
+CARDS_TOOL_TIMEOUT = 3600
+
+
+def _cards_train_case(name, b, lq, lk, n, gen):
+    """The stats forward, dKV and dQ at one shape against their plain
+    twins on the same inputs; their times, the plain twins', SDPA's
+    (forward; forward + backward) and their bounds."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (torch.randn(b, length, n, HEAD_DIM, generator=gen,
+                           device=DEVICE, dtype=torch.bfloat16)
+               for length in (lq, lk, lk))
+    got = fa.flash_attention_stats_cuda(q, k, v)
+    want = fa.flash_attention_stats_plain(q, k, v)
+    stats_errs = [_check(name, what, g, w, FLASH_REL_TOL)
+                  for what, g, w in zip(("out", "m", "l"), got, want)]
+    out, m, l_ = want
+    do = torch.randn(out.shape, generator=gen, device=DEVICE,
+                     dtype=torch.bfloat16)
+    ops = fa.bwd_operands(q, k, v, None, out, m, l_, do)
+    dk, dv = fa.flash_bwd_dkv_cuda(ops)
+    dq = fa.flash_bwd_dq_cuda(ops)
+    wdq, wdk, wdv = fa.flash_bwd_plain(q, k, v, None, out, m, l_, do)
+    errs = {what: _check(name, what, g, w, GRAD_REL_TOL)
+            for what, g, w in (("dq", dq, wdq), ("dk", dk, wdk),
+                               ("dv", dv, wdv))}
+    del dk, dv, dq, wdq, wdk, wdv, got
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt)
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qt, kt, vt)
+        return torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2))
+
+    (fwd_b, fwd_by), (dkv_b, dkv_by), (dq_b, dq_by) = train_bounds(
+        b, lq, lk, [lk] * b, n=n)
+    row = dict(
+        case=name, B=b, Lq=lq, Lk=lk, N=n,
+        max_abs_err={w: e[0] for w, e in errs.items()},
+        rel_err={w: e[1] for w, e in errs.items()},
+        stats_max_abs_err=max(e[0] for e in stats_errs),
+        stats_rel_err=max(e[1] for e in stats_errs),
+        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q, k, v)),
+        dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
+        dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(ops)),
+        stats_plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(
+            q, k, v), iters=1, warmup=0),
+        plain_ms=cuda_ms(lambda: fa.flash_bwd_plain(
+            q, k, v, None, out, m, l_, do), iters=1, warmup=0),
+        stats_library_ms=cuda_ms(sdpa_fwd), stats_library="SDPA forward",
+        library_ms=cuda_ms(sdpa_fwd_bwd, iters=5),
+        library="SDPA forward + backward (dq, dk, dv)",
+        stats_bound_ms=fwd_b, stats_bound_by=fwd_by,
+        dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
+        dq_bound_ms=dq_b, dq_bound_by=dq_by,
+        dkv_query_splits=fa.dkv_query_splits(b, n, lq, lk))
+    del q, k, v, qt, kt, vt, out, m, l_, do, ops, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cards_kernels(report):
+    """18. The kernels at the shapes the four-card runs launch
+    (``CARDS_*``), on this one card, each against its plain twin on the
+    same inputs, timed beside its bound and its library call: the forward
+    (S4, S6), the stats forward, dKV and dQ (T1-T5), the ring's pairs with
+    the global stats and an empty key shard (T3, and the 14B's ring and
+    USP at 32,760 tokens), the int8 GEMM (bit-equal, three bias modes) and
+    the activation quantization (bit-equal) of S5's W8A8 ranks. Launches
+    here are comparisons, not a path's."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    fwd, train, pairs = [], [], []
+    with torch.no_grad():
+        for name, b, lq, lk, n in CARDS_FWD:
+            q = torch.randn(b, lq, n, HEAD_DIM, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn(b, lk, n, HEAD_DIM, generator=gen,
+                                device=DEVICE, dtype=torch.bfloat16)
+                    for _ in range(2))
+            fwd.append(_sp_fwd_case(name, q, k, v, plain_iters=1))
+            log("phase 18: " + json.dumps(fwd[-1]))
+            del q, k, v
+            torch.cuda.empty_cache()
+    for name, b, lq, lk, n in CARDS_TRAIN:
+        train.append(_cards_train_case(name, b, lq, lk, n, gen))
+        log("phase 18: " + json.dumps(train[-1]))
+    for b, tokens, shards, n in CARDS_PAIRS:
+        pairs.append(_sp_pair_case(n, gen, b=b, l=tokens, shards=shards))
+        log("phase 18: " + json.dumps(pairs[-1]))
+    int8_kernel_cases(report, CARDS_INT8, key="cards_int8", phase="18")
+    quantize_kernel_cases(report, CARDS_QUANT, key="cards_quantize",
+                          phase="18")
+    report["cards_kernels"] = dict(fwd=fwd, train=train + pairs)
+    torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cards(report):
+    """17. (only when asked) ``tools/sp_serve_cards.py`` and
+    ``tools/sp_train_cards.py`` at their defaults: the runs S1-S6 and
+    T1-T5 on four cards, one rank per card over NCCL. T1 runs last, in a
+    launch of its own: its final checkpoint (the 14B's weights and AdamW
+    moments, 160 GiB) needs a disk that holds it, and a tool stops at its
+    first failed run. Raises with fewer than four cards visible, and when
+    any of the three fails (all three run)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < CARDS:
+        raise RuntimeError(f"phase 17 needs {CARDS} cards; {count} visible")
+    torch.cuda.empty_cache()  # this process' cache on card 0
+    root = pathlib.Path(__file__).resolve().parent
+    rows, failed = {}, []
+    for tool, args in (("sp_serve_cards.py", []),
+                       ("sp_train_cards.py", ["--runs", "T2,T3,T5,T4"]),
+                       ("sp_train_cards.py", ["--runs", "T1"])):
+        name = " ".join([tool] + args)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(root / "tools" / tool), *args], cwd=root,
+            capture_output=True, text=True, timeout=CARDS_TOOL_TIMEOUT)
+        rows[name] = []
+        for line in proc.stdout.splitlines():
+            log(f"phase 17: {tool}: {line}")
+            if line.startswith("{"):
+                rows[name].append(json.loads(line))
+        log(f"phase 17: {name} exited {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode:
+            log(proc.stderr[-8000:])
+            failed.append(name)
+    report["cards"] = rows
+    if failed:
+        raise RuntimeError(f"phase 17: {failed} failed")
+
+
+def _cards_launches(report, key):
+    """A kernel's launches in each phase-17 run (rank 0's)."""
+    out = {}
+    for rows in report.get("cards", {}).values():
+        for row in rows:
+            if isinstance(row.get("launches"), dict) and "run" in row:
+                tag = " ".join(str(x) for x in (row["run"],
+                                                row.get("sp_mode", ""))
+                               if x)
+                out[f"four cards {tag}, rank 0 (phase 17)"] = \
+                    row["launches"].get(key, 0)
+    return out
+
+
 PHASES = {1: phase_setup, 2: phase_kernels, 3: phase_dit,
           4: phase_main_path, 5: phase_profile, 6: phase_train,
           7: phase_train_profile, 8: phase_quant_serving,
           9: phase_quant_profile, 10: phase_preprocess, 11: phase_lora,
           12: phase_i2v, 13: phase_sp, 14: phase_utils,
-          15: phase_qlora_profile, 16: phase_sp_train}
+          15: phase_qlora_profile, 16: phase_sp_train, 17: phase_cards,
+          18: phase_cards_kernels}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,8,10,11,12,13,14,16",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,6,8,10,11,12,13,14,16,18",
                     help="comma-separated phases to run (default: all "
-                         "but the profiles, 5, 7, 9 and 15)")
+                         "but the profiles, 5, 7, 9 and 15, and the "
+                         "four-card runs, 17)")
     args = ap.parse_args(argv)
     phases = sorted({int(p) for p in args.phases.split(",")})
 

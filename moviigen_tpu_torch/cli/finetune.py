@@ -6,8 +6,10 @@ Counterpart of ``moviigen_tpu/cli/finetune.py`` (ref
 precomputed-latent dataset, the bucket sampler, the flow-matching step
 with clip, AdamW, LR schedule and grad accumulation, TensorBoard metrics
 when ``tensorboard`` is installed (per-timestep-bin losses included),
-periodic, final and SIGINT/SIGTERM checkpoints, resume, OT noise
-pairing (``--compute_ot``). ``--use_lora`` trains rank-r adapters on the
+periodic, final and SIGINT/SIGTERM checkpoints, resume (with the
+generator's state and the loader's place, so that the resumed steps are
+the ones the run would have taken), OT noise pairing
+(``--compute_ot``). ``--use_lora`` trains rank-r adapters on the
 attention projections of a frozen base (``training/lora.py``), which
 ``--quant int8|int4`` stores weight-only quantized (QLoRA: how the 14B
 trains on one card); checkpoints then hold the adapters alone, and
@@ -181,6 +183,20 @@ def build_mesh(args):
     return mesh
 
 
+def _loader_position(sampler, batch_size: int, steps: int):
+    """(epoch, batch in it) of the loader after ``steps`` batches from
+    the start: each epoch's batches counted from the sampler's indices,
+    no data read."""
+    epoch = 0
+    while True:
+        sampler.set_epoch(epoch)
+        n = sum(1 for _ in sampler) // batch_size
+        if n == 0 or steps < n:
+            return epoch, steps
+        steps -= n
+        epoch += 1
+
+
 def main(argv=None) -> dict:
     """Run the fine-tune; returns the run's record: the last step, the
     per-step seconds, losses and grad norms, the final checkpoint's path
@@ -326,14 +342,18 @@ def _main(args) -> dict:
         max_train_steps=args.max_train_steps,
     )
     opt = make_optimizer(trainable, tc, comm=mesh)
+    # the noise and timestep draws; checkpointed with the optimizer
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     train_step = make_train_step(
         model, tc, rope, opt,
         seq_len=seq_len if seq_len > tokens else None,
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-        comm=mesh)
+        generator=gen, comm=mesh)
 
-    # ---- resume
+    # ---- resume: the weights, the optimizer and the generator as the
+    # run left them, and the loader at the batch after its last step, so
+    # that the resumed steps are the ones the run would have taken
     start_step = 0
+    epoch = 0
     if args.resume_from_checkpoint:
         path = args.resume_from_checkpoint
         if path == "latest":
@@ -341,8 +361,12 @@ def _main(args) -> dict:
             path = found[0] if found else None
         if path:
             target = lora_state_dict(adapters) if adapters else model
-            start_step = restore_checkpoint(path, target, opt, comm=mesh)
-            logging.info("resumed from %s at step %d", path, start_step)
+            start_step = restore_checkpoint(path, target, opt, comm=mesh,
+                                            generator=gen)
+            epoch, skip = _loader_position(sampler, batch_size, start_step)
+            loader.skip_batches(skip)
+            logging.info("resumed from %s at step %d (epoch %d, batch %d)",
+                         path, start_step, epoch, skip)
 
     # ---- TensorBoard (ref finetune.py:326-327, 641-656), when installed,
     # on rank 0
@@ -367,7 +391,7 @@ def _main(args) -> dict:
         path = save_checkpoint(
             args.output_dir, step, target, opt, extra_meta=meta,
             export_safetensors=args.export_safetensors and not adapters,
-            comm=mesh)
+            comm=mesh, generator=gen)
         if not writer:
             return path
         if adapters and args.export_safetensors:
@@ -404,7 +428,6 @@ def _main(args) -> dict:
     record = {"step_s": [], "loss": [], "grad_norm": [], "profile": None}
     step_times = deque(maxlen=100)
     step = start_step
-    epoch = 0
     # the first --profile_steps steps under torch.profiler (the JAX CLI's
     # window: opened before the first step, closed after step N - 1), on
     # rank 0

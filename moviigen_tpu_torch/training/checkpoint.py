@@ -10,7 +10,10 @@ Counterpart of ``moviigen_tpu/training/checkpoint.py``: the layout
   the adapters alone (``lora.lora_state_dict``);
 - ``opt_state.safetensors``: the optimizer state, the moments and the
   accumulated gradient under ``m/``, ``v/`` and ``acc/`` + the
-  parameter's name, the counters in the header's metadata;
+  parameter's name, the counters in the header's metadata, and there
+  too, when given, the state of the trainer's generator (the noise and
+  timestep draws), so that a resumed run draws what the run that was
+  stopped would have drawn next;
 - ``meta.json``: ``{"step": N}`` plus the caller's keys (the CLI adds
   ``final``, ``lora`` and ``quant``, and for LoRA ``lora_rank``,
   ``lora_alpha`` and ``lora_dtype``, as the JAX CLI does);
@@ -116,10 +119,12 @@ def _opt_index(named, optimizer) -> Dict[str, int]:
 def save_checkpoint(output_dir: str, step: int,
                     params: Union[nn.Module, Tensors], optimizer=None,
                     extra_meta: Optional[Dict[str, Any]] = None,
-                    export_safetensors: bool = False, comm=None) -> str:
+                    export_safetensors: bool = False, comm=None,
+                    generator: Optional[torch.Generator] = None) -> str:
     """Write ``checkpoint-step_{step}``: ``params`` (a model, whose
     parameters are saved, or named tensors such as the adapters'
-    ``lora_state_dict``), the optimizer state and ``meta.json``; with
+    ``lora_state_dict``), the optimizer state (with ``generator``'s state
+    beside it) and ``meta.json``; with
     ``export_safetensors`` also the model in the reference layout (a
     model only). With ``comm`` it is a collective call of every rank of a
     mesh: ``params`` is this rank's model (its shards found by
@@ -141,11 +146,14 @@ def save_checkpoint(output_dir: str, step: int,
         items = [(f"{k}/{name}", name, state[k][index[name]])
                  for k in _MOMENTS if state[k] is not None
                  for name in named]
+        counters = {"count": state["count"],
+                    "mini_step": state["mini_step"],
+                    "acc": state["acc"] is not None}
+        if generator is not None:
+            counters["generator"] = bytes(
+                generator.get_state().tolist()).hex()
         _stream_gathered(os.path.join(path, OPT_FILE), comm, axis,
-                         sharded, items,
-                         {"count": state["count"],
-                          "mini_step": state["mini_step"],
-                          "acc": state["acc"] is not None})
+                         sharded, items, counters)
     if writer:
         meta = {"step": step}
         if extra_meta:
@@ -186,8 +194,12 @@ def _stream_gathered(file, comm, axis, sharded, items, metadata=None,
             yield t.reshape(shapes[key]) if key in shapes else t
 
     if comm.rank != 0:
-        for _ in tensors():
-            pass
+        for t in tensors():
+            # wait for each gather before queueing the next: queued ahead
+            # of the writer, every gathered copy would stay allocated on
+            # this rank's card until the writer reached it
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
         return
     entries = []
     for key, name, t in items:
@@ -217,9 +229,10 @@ def export_wan_mesh_safetensors(path: str, model: nn.Module,
                              if shape})
 
 
-def _restore_opt(path, named, optimizer, cut) -> None:
+def _restore_opt(path, named, optimizer, cut, generator) -> None:
     """The optimizer's state from ``opt_state.safetensors``, one tensor
-    at a time (``cut`` keeps the rank's slice of a shard's)."""
+    at a time (``cut`` keeps the rank's slice of a shard's), and
+    ``generator``'s where the file has one."""
     file = os.path.join(path, OPT_FILE)
     meta = read_metadata(file)
     index = _opt_index(named, optimizer)
@@ -233,14 +246,19 @@ def _restore_opt(path, named, optimizer, cut) -> None:
                 cut(name, load_tensor(file, f"{k}/{name}")))
     optimizer.count = int(meta["count"])
     optimizer.mini_step = int(meta["mini_step"])
+    if generator is not None and "generator" in meta:
+        generator.set_state(torch.tensor(
+            list(bytes.fromhex(meta["generator"])), dtype=torch.uint8))
 
 
 @torch.no_grad()
 def restore_checkpoint(path: str, params: Union[nn.Module, Tensors],
-                       optimizer=None, comm=None) -> int:
+                       optimizer=None, comm=None,
+                       generator: Optional[torch.Generator] = None) -> int:
     """Load a checkpoint dir into ``params`` (a model's parameters, or
     named tensors such as a template's ``lora_state_dict``) and
-    ``optimizer`` when given and saved; returns its step. Every tensor
+    ``optimizer`` when given and saved, and ``generator`` where the
+    optimizer's file holds its state; returns its step. Every tensor
     must be in the file with its shape, and the file may hold nothing
     else. With ``comm`` (every rank of a mesh calls it) each tensor is
     read alone and the rank keeps its slice of each shard it holds."""
@@ -272,7 +290,7 @@ def restore_checkpoint(path: str, params: Union[nn.Module, Tensors],
         p.copy_(t)
     if optimizer is not None and os.path.exists(os.path.join(path,
                                                              OPT_FILE)):
-        _restore_opt(path, named, optimizer, cut)
+        _restore_opt(path, named, optimizer, cut, generator)
     return read_meta(path).get("step", 0)
 
 

@@ -325,6 +325,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.native_batches = 0
         self.python_batches = 0
+        self._skip = 0
         self._pool = None
         if use_native:
             from ..native import NativeReaderPool, native_available
@@ -354,6 +355,12 @@ class DataLoader:
         self.python_batches += 1
         return [self.dataset[i] for i in idxs]
 
+    def skip_batches(self, n: int) -> None:
+        """Make the next iteration start at its batch ``n``: the batches
+        before it are drawn from the sampler and not read (a resumed run
+        going on where the run it resumes stopped)."""
+        self._skip = n
+
     def close(self) -> None:
         """Destroy the reader pool (after iteration has ended)."""
         if self._pool is not None:
@@ -364,13 +371,17 @@ class DataLoader:
         import queue
         import threading
 
+        skip, self._skip = self._skip, 0
+
         def batches():
-            buf = []
+            buf, n = [], 0
             for idx in self.sampler:
                 buf.append(idx)
                 if len(buf) == self.batch_size:
-                    yield self.collate_fn(self._load_batch_items(buf))
+                    if n >= skip:
+                        yield self.collate_fn(self._load_batch_items(buf))
                     buf = []
+                    n += 1
 
         if self.prefetch <= 0:
             yield from batches()

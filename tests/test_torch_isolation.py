@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``moviigen_tpu_torch``
 loads neither JAX nor any module of the JAX package, nor a package that
 the card's machine lacks (``safetensors``, ``optax``, ``orbax``,
-``tensorboard``), and no source of the port (nor ``chip_smoke.py``)
-imports JAX or the JAX package."""
+``tensorboard``), and no source of the port (nor ``chip_smoke.py`` and
+the across-card tools) imports JAX or the JAX package."""
 
 import json
 import pathlib
@@ -60,7 +60,9 @@ def test_sources_import_no_jax_package():
     pattern = re.compile(
         r"^\s*(import\s+(jax|jaxlib|moviigen_tpu)\b(?!_torch)"
         r"|from\s+(jax|jaxlib|moviigen_tpu)(\.|\s)(?!_torch))", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tools" / name for name in ("cards.py", "sp_serve_cards.py",
+                                           "sp_train_cards.py")]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

@@ -83,7 +83,8 @@ def _grads(comm, sp_mode, seq_len):
     with torch.no_grad():
         model.head.weight.normal_(0.0, 0.1, generator=gen)  # live head
     m = own_trained(sharding.shard_params(
-        model, sharding.dit_param_specs(model), comm, "seq"))
+        model, sharding.dit_param_specs(model), comm,
+        sharding.shard_axis(comm)))
     cap = GradCapture(m, comm)
     batch = {"latents": torch.randn(2, CFG.in_dim, 2, 8, 8, generator=gen),
              "context": torch.randn(2, CFG.text_len, CFG.text_dim,
@@ -141,6 +142,57 @@ def test_dist_comm_grads_equal_thread_comm(tmp_path):
                                       atol=1e-6 * scale), (name, r, n)
                 if n not in shards:
                     assert torch.equal(got[n], ranks[0][name][1][n]), n
+
+
+def _mesh_grad_worker(rank, world, port, out_dir, cases):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        results = {}
+        for name, mode, seq_len, (data, ring, seq) in cases:
+            comm = make_mesh(data=data, ring=ring, seq=seq)
+            results[name] = _grads(comm, mode, seq_len)
+            if rank == 0:  # the same mesh as threads of this process
+                results[f"{name}/threads"] = run_ranks(
+                    lambda c: _grads(c, mode, seq_len),
+                    thread_mesh(data=data, ring=ring, seq=seq))
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# (name, sp_mode, seq_len, mesh (data, ring, seq)): the ring over 4 ranks,
+# its 48 padded tokens leaving the last key shard empty; hybrid USP
+RING_USP_CASES = [("ring4_padded", "ring", 48, (1, 1, 4)),
+                  ("usp2x2", "usp", None, (1, 2, 2)),
+                  ("usp2x2_padded", "usp", 48, (1, 2, 2))]
+
+
+@pytest.mark.parametrize("cases", [RING_USP_CASES], ids=["ring4_usp2x2"])
+def test_dist_comm_ring_usp_grads_equal_thread_comm(tmp_path, cases):
+    """The ring's and hybrid USP's training step over four gloo ranks
+    (data 1) against the same meshes as thread ranks: loss and grad_norm
+    the same bits, and every gradient (the shards and the replicated
+    tensors) within 1e-6 of its scale: the whole-mesh sums (the
+    replicated tensors', and the shards' reduce-scatters over the token
+    axes) are gloo's four terms and ``ThreadComm``'s in their own orders,
+    as in the (data 2, seq 2) test above."""
+    _spawn(_mesh_grad_worker, 4, 4, _free_port(), str(tmp_path), cases)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    for name, _, _, _ in cases:
+        threads = ranks[0][f"{name}/threads"]
+        for r in range(4):
+            (got_m, got, shards), (want_m, want, _) = ranks[r][name], \
+                threads[r]
+            assert shards and float(want_m["grad_norm"]) > 0
+            for key in ("loss", "grad_norm"):
+                assert torch.equal(got_m[key], want_m[key]), (name, key)
+            assert set(got) == set(want)
+            for n, g in want.items():
+                assert torch.allclose(got[n], g, rtol=0,
+                                      atol=1e-6 * float(g.abs().max())), \
+                    (name, r, n)
 
 
 def _signalled_run(finetune, rank, argv):
