@@ -80,10 +80,11 @@ Phases:
     forward, launches counted, seconds beside the one-process forward's;
     (b) the kernels at the shapes those modes launch, against their plain
     twins on the same inputs: the forward over Ulysses' N/sp heads and on
-    the cross-attention's query shards, and the ring's stats kernel per
-    (query shard, key shard) pair at ring sp 2's 40 heads, USP's 20 (and
-    at 4 shards), merged by ``ring_merge`` against the one-shot kernel,
-    and with an empty key shard against the plain twin pair by pair; (c) the
+    the cross-attention's query shards, and the ring's carried kernel per
+    (query shard, key shard) step at ring sp 2's 40 heads, USP's 20 (and
+    at 4 shards) against the one-shot kernel, and with an empty key shard
+    against the plain twin step by step, timed beside the stats kernel
+    and the eager merge the ring ran before; (c) the
     FSDP variant at sp 2 (block weights as shards gathered per block; a
     4-block bf16 and W8A8 DiT, a 4-layer umT5-XXL) bit-equal to the
     unsharded one; (d) ``cli.generate --dit_fsdp --t5_fsdp`` under
@@ -102,9 +103,10 @@ Phases:
 15. (only when asked: ``--phases 15``) 11a's QLoRA run with
     ``--profile_steps 2``: device ms by category and the top 40 kernels;
 16. sequence-parallel training on the one card, the ranks as threads:
-    (a) the ring's pair kernels (stats forward, dKV, dQ) at 32,760 tokens
-    cut in two, at 12 and 40 heads, with the global stats of the ring's
-    merged forward and an empty key shard, against their plain twins,
+    (a) the ring's pair kernels (carried forward, stats forward, dKV, dQ)
+    at 32,760 tokens cut in two, at 12 and 40 heads, with the global
+    stats of the ring's carried forward and an empty key shard, against
+    their plain twins,
     their sums against the one-shot backward, timed beside their bounds
     and SDPA's forward + backward; (b) cell st1: one t2v-1.3B train step
     at full width and depth and 32,760 tokens in Ulysses sp 2, ring sp 2
@@ -355,6 +357,16 @@ def flash_bound(b, lq, lk_eff, n=HEADS, d=HEAD_DIM):
                   2.0 * n * d * (2 * b * lq + 2 * keys))
 
 
+def carry_bound(b, lq, lk, n, d=HEAD_DIM):
+    """(bound ms, bound_by) of a middle step of the ring's carried forward
+    (``flash_fwd.cu`` ``kCarry``, neither first nor last): the forward's
+    flops over every key, q, k and v read once, and the fp32 state (acc
+    [B, Lq, N, D]; m, l [B, N, Lq]) read once and written once."""
+    state = 4 * b * lq * n * d + 2 * 4 * b * n * lq
+    return _bound(4.0 * n * lq * d * b * lk,
+                  2 * n * d * (b * lq + 2 * b * lk) + 2 * state)
+
+
 def train_bounds(b, lq, lk, lk_eff, n=TRAIN_HEADS, d=HEAD_DIM):
     """(bound ms, bound_by) of the stats forward, the dKV and the dQ
     kernel. Flops per attended key and query row, times N·D: 4 for the
@@ -577,6 +589,29 @@ def _check(name, what, got, want, tol):
         raise RuntimeError(f"{name}: kernel vs plain {what} max abs err "
                            f"{max_abs:.3e} is {rel:.3e} of max|plain| > {tol}")
     return max_abs, rel
+
+
+def _check_carry(name, got, want):
+    """A step of the ring's carried forward against its plain twin's: acc
+    (or, on the last step, out), m and l within ``FLASH_REL_TOL``; rows
+    that have attended to nothing yet must be exactly m = -1e30, l = 0 and
+    acc (out) = 0 in the kernel's result, as in the twin's, and are left
+    out of m's bound. Returns the (max abs, relative) errors."""
+    import torch
+
+    empty = want[1] <= -0.99e30
+    if not torch.equal(empty, got[1] <= -0.99e30) \
+            or bool(got[1][empty].ne(-1e30).any()) \
+            or bool(got[2][empty].any()) \
+            or bool(got[0].transpose(1, 2)[empty].any()):
+        raise RuntimeError(f"{name}: rows that attended to nothing are not "
+                           "m = -1e30, l = 0, acc = 0")
+    errs = [_check(name, "acc or out", got[0], want[0], FLASH_REL_TOL),
+            _check(name, "l", got[2], want[2], FLASH_REL_TOL)]
+    if not bool(empty.all()):
+        errs.append(_check(name, "m", got[1][~empty], want[1][~empty],
+                           FLASH_REL_TOL))
+    return errs
 
 
 def train_kernel_cases(report, cases=None, heads=TRAIN_HEADS,
@@ -995,11 +1030,36 @@ def kernels_line(report):
 
     stats = [c for c in train if "kernel" in c]
     bwd = [c for c in train if "kernel" not in c]
-    if "sp_kernels" in report:  # 13b: the ring groups of the SP modes
-        stats = stats + report["sp_kernels"]["stats"]
+    pairs = report.get("sp_train_pairs", []) \
+        + report.get("cards_kernels", {}).get("train", [])
+    # the ring's carried forward: 13b's ring groups of the SP modes, 16a's
+    # pairs, 18's four-card shapes
+    carry = report.get("sp_kernels", {}).get("carry", []) + [dict(
+        case=c["case"], kernel="carry", N=c["N"], shards=c["shards"],
+        max_abs_err=c["carry_max_abs_err"], rel_err=c["carry_rel_err"],
+        ms=c["carry_ms"], plain_ms=c["carry_plain_ms"],
+        bound_ms=c["carry_bound_ms"], bound_by=c["carry_bound_by"],
+        library_ms=c["stats_library_ms"], library=c["stats_library"],
+        stats_ms=c["stats_ms"]) for c in pairs if "carry_ms" in c]
+    if carry:
+        mc = carry[0]  # 13b's ring sp 2 pair when phase 13 ran
+        entries.append({
+            "name": "flash_fwd_carry",
+            "route": "cuda",
+            "source": "moviigen_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "moviigen_tpu/ops/flash_attention.py:105",
+            "launches": sum(_sp_launches(report, "carry_launches").values()),
+            "launches_by_path": {
+                **_sp_launches(report, "carry_launches"),
+                **_spt_launches(report, "carry_launches"),
+                **_cards_launches(report, "carry_launches")},
+            "max_abs_err": max(c["max_abs_err"] for c in carry),
+            "ms": mc["ms"], "plain_ms": mc["plain_ms"],
+            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+            "library_ms": mc["library_ms"], "cases": carry,
+        })
     # 16a: the ring's pairs; 18: the four-card runs' shapes
-    for c in report.get("sp_train_pairs", []) \
-            + report.get("cards_kernels", {}).get("train", []):
+    for c in pairs:
         stats.append(dict(
             case=c["case"], kernel="stats", N=c["N"],
             max_abs_err=c["stats_max_abs_err"], rel_err=c["stats_rel_err"],
@@ -1325,10 +1385,13 @@ def _kernel_category(name: str) -> str:
         return "flash dKV (this port's kernel)"
     if "flash_bwd_dq" in name:
         return "flash dQ (this port's kernel)"
-    if "flash_fwd" in name:  # the stats variant is the template's <true>
-        stats = "<true>" in name or "ILb1E" in name
-        return (f"flash forward{' stats' if stats else ''} "
-                "(this port's kernel)")
+    if "flash_fwd" in name:
+        # flash_fwd.cu's template Variant: 1 the stats variant, 2 the
+        # ring's carried one (demangled or mangled names)
+        variant = re.search(r"Variant\)(\d)>|VariantE(\d)E", name)
+        kind = {"1": " stats", "2": " carried"}.get(
+            variant and (variant.group(1) or variant.group(2)), "")
+        return f"flash forward{kind} (this port's kernel)"
     low = name.lower()
     if any(tag in low for tag in ("gemm", "xmma", "cutlass", "nvjet",
                                   "matmul")):
@@ -3044,15 +3107,17 @@ SP_CASES = [
 # The SP forward against the one-process forward, bf16 compute, 40 blocks.
 # Ulysses runs each head's attention as the same kernel work item over the
 # same keys, and the linears' rows are independent of each other: it must
-# give the one-process bits exactly. The ring rounds each key shard's
-# partial to bf16 (the kernel's output) before the fp32 merge, a rounding
-# the one-shot kernel does once: it reads 2.25e-3 of the prediction's
-# norm, the same bits in every call. The bound for ring and USP is twice
+# give the one-process bits exactly. The ring carries its online softmax
+# through the kernel in fp32 and rounds each output once, as one card
+# does, but walks the keys in another order, so P is rounded to bf16
+# against another running max: 2.24e-3 of the prediction's norm (2.25e-3
+# when each key shard's partial was rounded to bf16 and merged), the
+# same bits in every call. The bound for ring and USP is about twice
 # that. The controls (``SP_CONTROLS``) show what it can see: a fault of
 # the SP code runs in every block, and one head dropped in every block
 # must read above the bound; one head dropped in block 0 alone reads
 # about as much as the ring's rounding, so a fault that small is left to
-# 13b's pair-by-pair checks of the ring at the modes' shapes.
+# 13b's step-by-step checks of the ring at the modes' shapes.
 SP_RING_REL_TOL = 5e-3
 # (name, blocks, must exceed the bound): the one-process forward with
 # head 0 of those blocks' self-attention dropped (its input columns of
@@ -3074,11 +3139,11 @@ def _sp_expected(mode, ring, sp, layers):
     """Launches of one SP forward over all ranks: per block and rank one
     cross-attention forward (its token shard against the 512 text keys)
     and, for the self-attention, one forward over N/sp heads (ulysses) or
-    one stats launch per key shard that comes round the ring (ring: sp;
-    usp: R)."""
-    stats = {"ulysses": 0, "ring": sp, "usp": ring}[mode]
+    one carried launch per key shard that comes round the ring (ring: sp;
+    usp: R); no stats launch."""
+    shards = {"ulysses": 0, "ring": sp, "usp": ring}[mode]
     return dict(launches=layers * sp * (1 + (mode == "ulysses")),
-                stats_launches=layers * sp * stats)
+                carry_launches=layers * sp * shards)
 
 
 def phase_sp_forward(report):
@@ -3246,12 +3311,14 @@ def _sp_fwd_case(name, q, k, v, plain_iters=3):
 
 def _sp_ring_case(n, shards, gen):
     """The ring of ``shards`` key shards at ``n`` heads: for each query
-    shard the stats kernel on each key shard (its local ``k_lens``), merged
-    by ``ring.ring_merge``; dense against the one-shot kernel, then with a
-    ``k_lens`` that empties batch entry 1's last key shard against the
-    plain twin, and each of that run's pairs against the plain twin's
-    stats on the same inputs (an empty pair exactly: m = -1e30, l = 0).
-    One pair's stats kernel, merge, plain twin and SDPA timed."""
+    shard the carried kernel on each key shard in the ring's order (its
+    own first; its local ``k_lens``); dense against the one-shot kernel,
+    then with a ``k_lens`` that empties batch entry 1's last key shard
+    against the plain twin, each step against the twin's step
+    (``_check_carry``), the empty shard's step passing entry 1's state
+    through bit for bit. A middle step timed (state read and written)
+    with its plain twin, SDPA and its bound, beside what the ring ran
+    before: the stats kernel and ``ring.ring_merge``'s eager merge."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -3266,21 +3333,31 @@ def _sp_ring_case(n, shards, gen):
     cut = [[c.contiguous() for c in x.split(shard, dim=1)]
            for x in (q, k, v)]
 
-    def ring_out(k_lens, backend="auto"):
-        outs, pairs = [], {}
+    def ring_out(k_lens, check=False):
+        outs, errs = [], []
         for i in range(shards):
-            acc = (torch.zeros((b, shard, n, d), dtype=torch.float32,
-                               device=DEVICE),
-                   torch.full((b, shard, n), -1e30, device=DEVICE),
-                   torch.zeros((b, shard, n), device=DEVICE))
-            for j in range(shards):
-                part = fa.flash_attention_with_stats(
-                    cut[0][i], cut[1][j], cut[2][j],
-                    ring._local_klens(k_lens, j, shard), backend=backend)
-                pairs[i, j] = part
-                acc = ring.ring_merge(*acc, *part)
-            outs.append(acc[0].to(torch.bfloat16))
-        return torch.cat(outs, dim=1), pairs
+            state = plain = None
+            for step in range(shards):
+                j = (i - step) % shards
+                last = step == shards - 1
+                args = (cut[0][i], cut[1][j], cut[2][j],
+                        ring._local_klens(k_lens, j, shard))
+                held = [x[1].clone() for x in state] \
+                    if check and state is not None and j == shards - 1 \
+                    else None
+                state = fa.flash_attention_carry_cuda(*args, state, last)
+                if not check:
+                    continue
+                plain = fa.flash_attention_carry_plain(*args, plain, last)
+                pair = f"{name} pair ({i}, {j})"
+                errs += _check_carry(pair, state, plain)
+                if held is not None and not all(
+                        torch.equal(state[w][1], held[w])
+                        for w in ((1, 2) if last else (0, 1, 2))):
+                    raise RuntimeError(f"{pair}: the empty key shard's "
+                                       "step changed the state")
+            outs.append(state[0])
+        return torch.cat(outs, dim=1), errs
 
     errs = []
     got, _ = ring_out(None)
@@ -3288,44 +3365,38 @@ def _sp_ring_case(n, shards, gen):
                        fa.flash_attention_cuda(q, k, v), FLASH_REL_TOL))
     k_lens = torch.tensor([l, (shards - 1) * shard], dtype=torch.int32,
                           device=DEVICE)
-    got, pairs = ring_out(k_lens)
+    if int(ring._local_klens(k_lens, shards - 1, shard)[1]) != 0:
+        raise RuntimeError(f"{name}: batch entry 1's last key shard is not "
+                           "empty")
+    got, pair_errs = ring_out(k_lens, check=True)
     errs.append(_check(name, "ring with an empty shard vs plain", got,
                        fa.flash_attention_plain(q, k, v, k_lens),
                        FLASH_REL_TOL))
-    _, plain = ring_out(k_lens, backend="plain")
-    for (i, j), (o, m, l_) in pairs.items():
-        wo, wm, wl = plain[i, j]
-        pair = f"{name} pair ({i}, {j})"
-        errs.append(_check(pair, "out", o, wo, FLASH_REL_TOL))
-        empty = wm <= -0.99e30 / fa.LOG2E
-        if not torch.equal(empty, m <= -0.99e30 / fa.LOG2E) \
-                or bool(l_[empty].any()) or bool(o[empty].any()):
-            raise RuntimeError(f"{pair}: an empty key shard's rows are not "
-                               "m = -1e30, l = 0, out = 0")
-        errs.append(_check(pair, "m", m[~empty], wm[~empty], FLASH_REL_TOL))
-        errs.append(_check(pair, "l", l_, wl, FLASH_REL_TOL))
-    if not bool((plain[0, shards - 1][1][1] <= -0.99e30 / fa.LOG2E).all()):
-        raise RuntimeError(f"{name}: batch entry 1's last key shard is not "
-                           "empty")
+    errs += pair_errs
     q0, k0, v0 = cut[0][0], cut[1][1], cut[2][1]
+    state = fa.flash_attention_carry_cuda(q0, cut[1][0], cut[2][0],
+                                          last=False)
+    plain = fa.CarryState(*(x.clone() for x in state))
     part = fa.flash_attention_with_stats(q0, k0, v0)
     acc = ring.ring_merge(part[0].float(), part[1], part[2], *part)
     qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
-    bound_ms, bound_by = train_bounds(b, shard, shard, [shard] * b,
-                                      n=n)[0]
+    bound_ms, bound_by = carry_bound(b, shard, shard, n)
     row = dict(
-        case=name, kernel="stats", B=b, Lq=shard, Lk=shard, N=n,
+        case=name, kernel="carry", B=b, Lq=shard, Lk=shard, N=n,
         shards=shards, max_abs_err=max(e[0] for e in errs),
         rel_err=max(e[1] for e in errs), ring_rel_err=errs[0][1],
         empty_shard_rel_err=errs[1][1],
-        ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
-        merge_ms=cuda_ms(lambda: ring.ring_merge(*acc, *part)),
-        plain_ms=cuda_ms(lambda: fa.flash_attention_stats_plain(q0, k0, v0),
-                         iters=5, warmup=1),
+        ms=cuda_ms(lambda: fa.flash_attention_carry_cuda(
+            q0, k0, v0, None, state, False)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_carry_plain(
+            q0, k0, v0, None, plain, False), iters=5, warmup=1),
         library_ms=cuda_ms(lambda: torch.nn.functional
                            .scaled_dot_product_attention(qt, kt, vt)),
-        bound_ms=bound_ms, bound_by=bound_by, before_redesign_ms=None)
-    del q, k, v, cut, got, pairs, plain, part, acc
+        bound_ms=bound_ms, bound_by=bound_by,
+        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
+        merge_ms=cuda_ms(lambda: ring.ring_merge(*acc, *part)),
+        before_redesign_ms=None)
+    del q, k, v, cut, got, state, plain, part, acc
     torch.cuda.empty_cache()
     return row
 
@@ -3334,17 +3405,17 @@ def phase_sp_ring_pieces(report):
     """(b) The kernels at the shapes the SP modes of 13a launch, each
     against its plain twin on the same inputs (``_sp_kernel_shapes``):
     the forward kernel over Ulysses' N/sp heads and all 7,800 tokens and
-    on the cross-attention's query shards; the ring of stats launches and
-    merges for each ring group of ring and USP (and at 4 key shards),
-    dense against the one-shot kernel and with an empty key shard against
-    the plain twin, pair by pair (``_sp_ring_case``). Launches here are
+    on the cross-attention's query shards; the ring of carried launches
+    for each ring group of ring and USP (and at 4 key shards), dense
+    against the one-shot kernel and with an empty key shard against the
+    plain twin, step by step (``_sp_ring_case``). Launches here are
     comparisons, not the path's."""
     import torch
 
     b, l, n = SP_SHAPE
     heads, rings, rows = _sp_kernel_shapes()
     gen = torch.Generator(device=DEVICE).manual_seed(14)
-    fwd, stats = [], []
+    fwd, carry = [], []
     with torch.no_grad():
         for nu in heads:
             q, k, v = (torch.randn(b, l, nu, HEAD_DIM, generator=gen,
@@ -3362,9 +3433,9 @@ def phase_sp_ring_pieces(report):
             log("phase 13b: " + json.dumps(fwd[-1]))
         del q, k, v
         for nr, shards in rings:
-            stats.append(_sp_ring_case(nr, shards, gen))
-            log("phase 13b: " + json.dumps(stats[-1]))
-    report["sp_kernels"] = dict(fwd=fwd, stats=stats)
+            carry.append(_sp_ring_case(nr, shards, gen))
+            log("phase 13b: " + json.dumps(carry[-1]))
+    report["sp_kernels"] = dict(fwd=fwd, carry=carry)
     torch.cuda.empty_cache()
 
 
@@ -3620,13 +3691,15 @@ def _release_ckpt_dir(report, phase):
 
 def traced_flash_launches(kernels):
     """Launches of the port's flash kernels in a trace's ``{kernel:
-    (launches, ms)}``: the stats forward, the forward, dKV (its chunk-sum
-    kernel apart) and dQ."""
-    out = dict(stats=0, fwd=0, dkv=0, dq=0)
+    (launches, ms)}``: the stats forward, the forward, the ring's carried
+    forward, dKV (its chunk-sum kernel apart) and dQ."""
+    out = dict(stats=0, fwd=0, carry=0, dkv=0, dq=0)
     for name, (count, _) in kernels.items():
         cat = _kernel_category(name)
         if cat.startswith("flash forward stats"):
             out["stats"] += count
+        elif cat.startswith("flash forward carried"):
+            out["carry"] += count
         elif cat.startswith("flash forward"):
             out["fwd"] += count
         elif cat.startswith("flash dKV") and "reduce" not in name:
@@ -3676,7 +3749,7 @@ def phase_ft_profiled(report):
     counts = fa.launch_counts()
     report["ft_profile_launches"] = counts
     sites = 2 * cfg.num_layers  # self + cross attention per block
-    per_step = dict(stats=2 * sites, fwd=0, dkv=sites, dq=sites)
+    per_step = dict(stats=2 * sites, fwd=0, carry=0, dkv=sites, dq=sites)
     want = dict(dict.fromkeys(fa.COUNTERS, 0),
                 stats_launches=per_step["stats"] * TRAIN_STEPS,
                 dkv_launches=sites * TRAIN_STEPS,
@@ -4078,7 +4151,8 @@ def phase_qlora_profile(report):
     tr = record["profile"]
     traced = traced_flash_launches(tr.kernels)
     sites = 2 * cfg.num_layers
-    want = dict(stats=4 * sites, fwd=0, dkv=2 * sites, dq=2 * sites)
+    want = dict(stats=4 * sites, fwd=0, carry=0, dkv=2 * sites,
+                dq=2 * sites)
     log(f"phase 15: QLoRA {LORA_TASK} int8, {LORA_STEPS} steps, 2 "
         f"profiled, in {main_s:.1f} s: step_s {record['step_s']}, launches "
         f"{counts}, traced {traced}")
@@ -4112,20 +4186,21 @@ SPT_CASES = [
     ("ring_sp2", "ring", 1, 1, 2),
     ("usp_r2_u2", "usp", 1, 2, 2),
 ]
-# Every gradient of the SP step against the one-process step's, norm-
-# relative: both bf16 compute; Ulysses' attention is the same work items
-# as the one process's, the ring rounds each pair's partial to bf16 before
-# the fp32 merge and runs its backward per pair, each rank's dK of the
-# cross-attention covers its own queries and is rounded to bf16 before the
-# ranks' sum, and the gradients' sums over ranks run in other orders. §2's
-# gradient gate (GRAD_REL_TOL) bounds that; a gradient scaled by the world
-# size, or one shard's missing, is off by O(1). A linear's weight and bias
-# are held as one tensor (the bias is the weight of a constant input): the
-# key biases' gradients alone are near-cancellations (the softmax does not
-# change when every key moves by the same vector; only the qk-norm leaves
-# them a small gradient), so bf16 rounding of their terms reads as 1-3e-2
-# of their own norm already at t2v-tiny on the CPU. The loss: as the SP
-# forward's prediction (SP_RING_REL_TOL).
+# Every gradient of the SP step against the one-process step's,
+# norm-relative: both bf16 compute; Ulysses' attention is the same work
+# items as the one process's, the ring walks the keys in another order (P
+# rounded against another running max) and runs its backward per pair,
+# each rank's dK of the cross-attention covers its own queries and is
+# rounded to bf16 before the ranks' sum, and the gradients' sums over
+# ranks run in other orders. §2's gradient gate (GRAD_REL_TOL) bounds
+# that; a gradient scaled by the world size, or one shard's missing, is
+# off by O(1). A linear's weight and bias are held as one tensor (the bias
+# is the weight of a constant input): the key biases' gradients alone are
+# near-cancellations (the softmax does not change when every key moves by
+# the same vector; only the qk-norm leaves them a small gradient), so bf16
+# rounding of their terms reads as 1-3e-2 of their own norm already at
+# t2v-tiny on the CPU. The loss: as the SP forward's prediction
+# (SP_RING_REL_TOL).
 SPT_GRAD_REL_TOL = GRAD_REL_TOL
 SPT_LOSS_REL_TOL = SP_RING_REL_TOL
 # 16c: cli.finetune --sp_size 1 over NCCL at world size 1, 2 steps at 7,800
@@ -4158,14 +4233,17 @@ class _GradsOf:
 def _sp_pair_case(n, gen, b=2, l=None, shards=None):
     """The ring's pair kernels at ``n`` heads (``b`` batch entries,
     ``l`` tokens cut into ``shards``; by default phase 16a's): for each
-    query shard the
-    global stats from the ring's own forward (stats kernel per key shard,
-    ``ring_merge``), then each pair's dKV and dQ with those stats and the
-    held shard's key count, against the plain twin on the same inputs; an
-    empty pair exactly zero; the pairs' sums against the one-shot backward
-    kernels over the whole sequence. One dense pair's kernels timed, with
-    the plain twins, the bounds, SDPA's forward (the stats kernel's
-    library time) and SDPA's forward + backward (the backward kernels')."""
+    query shard the global stats from the ring's own forward (the carried
+    kernel per key shard in the ring's order, each step against the twin's
+    step, ``_check_carry``), then each pair's dKV and dQ with those stats
+    and the held shard's key count, against the plain twin on the same
+    inputs; an empty pair exactly zero; the pairs' sums against the
+    one-shot backward kernels over the whole sequence. One dense pair's
+    kernels timed (the carried forward's middle step, the stats forward
+    as the training's cross-attention and the Ulysses path run it, dKV,
+    dQ), with the plain twins, the bounds, SDPA's forward (the forwards'
+    library time) and SDPA's forward + backward (the backward kernels').
+    The stats forward is checked against its twin on that pair."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -4184,25 +4262,22 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
                           device=DEVICE)
     cut = [[x[:, i * s:(i + 1) * s].contiguous() for i in range(shards)]
            for x in (q, k, v, do)]
-    errs, stats_errs, sums = {}, [], {"dq": {}, "dk": {}, "dv": {}}
+    errs, carry_errs, sums = {}, [], {"dq": {}, "dk": {}, "dv": {}}
     stats = []
     for i in range(shards):
-        acc = (torch.zeros((b, s, n, HEAD_DIM), device=DEVICE),
-               torch.full((b, s, n), -1e30, device=DEVICE),
-               torch.zeros((b, s, n), device=DEVICE))
-        for j in range(shards):
-            kl = ring._local_klens(k_lens, j, s)
-            part = fa.flash_attention_with_stats(cut[0][i], cut[1][j],
-                                                 cut[2][j], kl)
-            plain = fa.flash_attention_stats_plain(cut[0][i], cut[1][j],
-                                                   cut[2][j], kl)
-            stats_errs.append(_check(f"{name} pair ({i}, {j})", "out",
-                                     part[0], plain[0], FLASH_REL_TOL))
-            acc = ring.ring_merge(*acc, *part)
-        o, m, l_ = acc
-        stats.append((o.to(torch.bfloat16),
-                      (m * fa.LOG2E).transpose(1, 2).contiguous(),
-                      l_.transpose(1, 2).contiguous()))
+        state = plain = None
+        for step in range(shards):
+            j = (i - step) % shards
+            final = step == shards - 1
+            args = (cut[0][i], cut[1][j], cut[2][j],
+                    ring._local_klens(k_lens, j, s))
+            state = fa.flash_attention_carry_cuda(*args, state, final)
+            plain = fa.flash_attention_carry_plain(*args, plain, final)
+            carry_errs += _check_carry(f"{name} pair ({i}, {j})", state,
+                                       plain)
+        # (out, m base 2, l [B, N, Lq]): as the pair backward takes them
+        stats.append(state)
+        del plain
     for i in range(shards):
         o, m2, l2 = stats[i]
         for j in range(shards):
@@ -4236,6 +4311,15 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
     q0, k0, v0, do0 = cut[0][0], cut[1][0], cut[2][0], cut[3][0]
     o0, m0, l0 = stats[0]
     ops = fa.bwd_operands(q0, k0, v0, None, o0, m0, l0, do0)
+    stats_errs = [_check(f"{name} pair (0, 0) stats", what, g, w,
+                         FLASH_REL_TOL)
+                  for what, g, w in zip(
+                      ("out", "m", "l"),
+                      fa.flash_attention_stats_cuda(q0, k0, v0),
+                      fa.flash_attention_stats_plain(q0, k0, v0))]
+    mid = fa.flash_attention_carry_cuda(q0, cut[1][-1], cut[2][-1],
+                                        last=False)
+    mid_plain = fa.CarryState(*(x.clone() for x in mid))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q0, k0, v0))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4250,6 +4334,7 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
 
     (fwd_b, fwd_by), (dkv_b, dkv_by), (dq_b, dq_by) = train_bounds(
         b, s, s, [s] * b, n=n)
+    carry_b, carry_by = carry_bound(b, s, s, n)
     row = dict(
         case=name, B=b, Lq=s, Lk=s, N=n, shards=shards,
         k_lens=k_lens.tolist(), empty_pair=[shards - 1, f"batch {last}"],
@@ -4259,7 +4344,14 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
                         if key.endswith(w)) for w in ("dq", "dk", "dv")},
         stats_max_abs_err=max(e[0] for e in stats_errs),
         stats_rel_err=max(e[1] for e in stats_errs),
+        carry_max_abs_err=max(e[0] for e in carry_errs),
+        carry_rel_err=max(e[1] for e in carry_errs),
         pairs_vs_one_shot_rel_err=sum_errs,
+        carry_ms=cuda_ms(lambda: fa.flash_attention_carry_cuda(
+            q0, k0, v0, None, mid, False)),
+        carry_plain_ms=cuda_ms(lambda: fa.flash_attention_carry_plain(
+            q0, k0, v0, None, mid_plain, False), iters=3, warmup=1),
+        carry_bound_ms=carry_b, carry_bound_by=carry_by,
         stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
         dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv_cuda(ops)),
         dq_ms=cuda_ms(lambda: fa.flash_bwd_dq_cuda(ops)),
@@ -4274,7 +4366,7 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
         dkv_bound_ms=dkv_b, dkv_bound_by=dkv_by,
         dq_bound_ms=dq_b, dq_bound_by=dq_by,
         dkv_query_splits=fa.dkv_query_splits(b, n, s, s))
-    del q, k, v, do, cut, stats, ops, qt, kt, vt
+    del q, k, v, do, cut, stats, ops, qt, kt, vt, mid, mid_plain
     torch.cuda.empty_cache()
     return row
 
@@ -4320,14 +4412,15 @@ def _spt_expected(mode, ring, sp, layers):
     per rank and block, the cross-attention's ``FlashAttention`` (the
     stats forward, again in the recompute, one dKV, one dQ) and the self-
     attention's: the same over N/sp heads (ulysses), or per key shard
-    that comes round the ring one stats launch in the forward and one in
-    the recompute and one dKV and one dQ in the backward (ring: sp key
+    that comes round the ring one carried launch in the forward and one
+    in the recompute and one dKV and one dQ in the backward (ring: sp key
     shards; usp: R)."""
-    shards = {"ulysses": 1, "ring": sp, "usp": ring}[mode]
+    shards = {"ulysses": 0, "ring": sp, "usp": ring}[mode]
     per = layers * sp
-    return dict(stats_launches=per * (2 + 2 * shards),
-                dkv_launches=per * (1 + shards),
-                dq_launches=per * (1 + shards))
+    return dict(stats_launches=per * (2 + 2 * (mode == "ulysses")),
+                carry_launches=per * 2 * shards,
+                dkv_launches=per * (1 + max(shards, 1)),
+                dq_launches=per * (1 + max(shards, 1)))
 
 
 def phase_sp_train_step(report):

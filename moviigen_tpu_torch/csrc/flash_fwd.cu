@@ -1,8 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate.
 //
 // Replaces the TPU kernels of moviigen_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel<false> <- _flash_kernel
-//   flash_fwd_kernel<true>  <- _flash_kernel_stats (the custom-VJP forward)
+//   flash_fwd_kernel<kPlain> <- _flash_kernel
+//   flash_fwd_kernel<kStats> <- _flash_kernel_stats (the custom-VJP forward)
 // launched by _flash_fwd through pl.pallas_call. Same function:
 //   o = softmax_2(q' k^T) v,  q' = bf16(q * bf16(scale * log2 e)),
 // non-causal, base-2 online softmax, keys at or past the per-batch k_len
@@ -11,6 +11,21 @@
 // bf16. With kStats it also writes each row's running max m (base 2) and
 // unguarded normalizer l, fp32 [B, N, Lq], from which the backward
 // kernels (flash_bwd.cu) recompute P.
+//
+// flash_fwd_kernel<kCarry> is the ring's step (parallel/ring.py; the JAX
+// ring merges the stats kernel's normalized partials instead,
+// moviigen_tpu/parallel/ring.py:87-117): it resumes the online softmax from
+// a running state kept in fp32 between launches, the unnormalized
+// o = sum 2^(s - m) v [B, Lq, N, D] and m, l [B, N, Lq], runs its key loop
+// over the held key shard, and writes the state back in place; the last
+// launch of a ring writes the bf16 output and (m, l) as kStats does. Each
+// thread reads and writes only its own rows' state (m is read by the four
+// threads of a quad, written by the first), so the update has no race.
+// Chained over key shards it rounds each output to bf16 once, as the
+// one-shot kernel does, not once per shard; in natural key order it
+// differs from the one-shot kernel only in the order of l's sums. The
+// state adds 2 x 4 bytes per output element to each launch's traffic
+// (read and written): 160 MB at B = 2, 1,950 query rows and 40 heads.
 //
 // What bounds it: tensor-core operations. Self-attention does
 // 4 * B * N * Lq * Lk * D flops on 4 * B * L * N * D * 2 bytes, about
@@ -59,7 +74,8 @@
 // - Ragged edges: TMA fills rows past Lq and Lk with zeros; keys between
 //   k_len and the end of their tile arrive as they are and are masked in
 //   the one tile that crosses k_len; a batch entry with k_len = 0 walks
-//   no tile and writes zeros (m = -1e30, l = 0). The caller passes
+//   no tile and writes zeros (m = -1e30, l = 0), or under kCarry its
+//   state as it came. The caller passes
 //   [B, L, N, D] views as they are: the tensor maps are built from their
 //   strides at each launch.
 
@@ -90,14 +106,20 @@ constexpr int kProducerRegs = 24;
 constexpr int kBarWarpgroup = 1;
 constexpr int kBarTurn = 3;
 
+// What a launch writes: the output (kPlain); the output, m and l (kStats);
+// the carried state, or on a ring's last step what kStats writes (kCarry).
+enum Variant { kPlain, kStats, kCarry };
+
 struct Params {
   __nv_bfloat16* o;
-  float* m;          // [B, N, Lq] row max (base 2), stats variant only
-  float* l;          // [B, N, Lq] softmax normalizer, stats variant only
+  float* m;          // [B, N, Lq] row max (base 2): kStats, kCarry
+  float* l;          // [B, N, Lq] softmax normalizer: kStats, kCarry
+  float* acc;        // [B, Lq, N, D] unnormalized output: kCarry
   const int* klens;  // [B] or null
   int batch, heads, lq, lk;
   long long sob, sol, son;
   float qscale;      // bf16(scale * log2 e), as a float
+  int first, last;   // kCarry: no state to read; write the output
 };
 
 // A block's unit of work: 128 query rows m0 .. m0 + 127 of head h, batch
@@ -285,7 +307,8 @@ __device__ __forceinline__ void pack_p(uint32_t (&pf)[8][4],
 // One work item for one consumer warpgroup: S, softmax and P V over the
 // item's n_tiles key tiles, which are ring tiles it0 .. it0 + n_tiles - 1;
 // frees the Q tile once its last S has landed. o, m_run, l_run come in
-// zeroed and leave with the item's sums.
+// zeroed, or holding a carried state (the first tile's alpha rescales it),
+// and leave with the item's sums.
 __device__ __forceinline__ void attend(const Smem& sm, const Item& x,
                                        int it0, int wg, int lane,
                                        float (&o)[16][4], float (&m_run)[2],
@@ -311,7 +334,7 @@ __device__ __forceinline__ void attend(const Smem& sm, const Item& x,
   };
 
   turns.start();
-  // tile 0: S only (o is zero)
+  // tile 0: S only (its alpha rescales o in the next P V)
   {
     float s[16][4];
     wait_full(0);
@@ -351,23 +374,48 @@ __device__ __forceinline__ void attend(const Smem& sm, const Item& x,
   release(x.n_tiles - 1);
 }
 
-// Normalise and write this thread's rows row0 and row0 + 8 of the item
-// (those below Lq); with kStats also m and the unguarded l.
-template <bool kStats>
-__device__ __forceinline__ void store_rows(const Params& p, const Item& x,
-                                           int row0, int t,
-                                           const float (&o)[16][4],
-                                           const float (&m_run)[2],
-                                           const float (&l_run)[2]) {
-  float l_sum[2], l_fin[2];
+// This thread's share of l summed over its quad, rows g and g + 8.
+__device__ __forceinline__ void quad_sum(const float (&l_run)[2],
+                                         float (&l_sum)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     l_sum[r] = l;
-    l_fin[r] = (l == 0.f) ? 1.f : l;
   }
+}
+
+// m and l of rows row0 and row0 + 8 (those below Lq), by the quad's first
+// thread (m and l are the same on its four threads).
+__device__ __forceinline__ void store_stats(const Params& p, const Item& x,
+                                            int row0, int t,
+                                            const float (&m_run)[2],
+                                            const float (&l_sum)[2]) {
+  if (t != 0) return;
+  const long long base = (static_cast<long long>(x.b) * p.heads + x.h) * p.lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r < p.lq) {
+      p.m[base + row0 + 8 * r] = m_run[r];
+      p.l[base + row0 + 8 * r] = l_sum[r];
+    }
+  }
+}
+
+// Normalise and write this thread's rows row0 and row0 + 8 of the item
+// (those below Lq); kWithStats also m and the unguarded l, as the Pallas
+// _flash_kernel_stats stores them.
+template <bool kWithStats>
+__device__ __forceinline__ void store_rows(const Params& p, const Item& x,
+                                           int row0, int t,
+                                           const float (&o)[16][4],
+                                           const float (&m_run)[2],
+                                           const float (&l_run)[2]) {
+  float l_sum[2], l_fin[2];
+  quad_sum(l_run, l_sum);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_fin[r] = (l_sum[r] == 0.f) ? 1.f : l_sum[r];
   __nv_bfloat16* og = p.o + x.b * p.sob + x.h * p.son;
   const int row1 = row0 + 8;
 #pragma unroll
@@ -382,28 +430,68 @@ __device__ __forceinline__ void store_rows(const Params& p, const Item& x,
           __floats2bfloat162_rn(o[dt][2] / l_fin[1], o[dt][3] / l_fin[1]);
     }
   }
-  // the stats variant: the row max and the unguarded normalizer, as the
-  // Pallas _flash_kernel_stats stores them (m and l are the same on the
-  // four threads of a quad; the first one writes)
-  if constexpr (kStats) {
-    if (t == 0) {
-      const long long base =
-          (static_cast<long long>(x.b) * p.heads + x.h) * p.lq;
-      if (row0 < p.lq) {
-        p.m[base + row0] = m_run[0];
-        p.l[base + row0] = l_sum[0];
-      }
-      if (row1 < p.lq) {
-        p.m[base + row1] = m_run[1];
-        p.l[base + row1] = l_sum[1];
-      }
+  if constexpr (kWithStats) store_stats(p, x, row0, t, m_run, l_sum);
+}
+
+// kCarry: this thread's elements of the state [B, Lq, N, D], row `row` of
+// the item's head, columns col, col + 1.
+__device__ __forceinline__ float2* acc_at(const Params& p, const Item& x,
+                                          int row, int col) {
+  return reinterpret_cast<float2*>(
+      p.acc + ((static_cast<long long>(x.b) * p.lq + row) * p.heads + x.h) *
+                  kD + col);
+}
+
+// kCarry: load this thread's rows of the carried state into the registers
+// the key loop works on (the layout store_rows writes them in): o, m on
+// the quad's four threads, l on its first (l_run is a share summed over
+// the quad at the end; the other three start from 0).
+__device__ __forceinline__ void load_state(const Params& p, const Item& x,
+                                           int row0, int t,
+                                           float (&o)[16][4],
+                                           float (&m_run)[2],
+                                           float (&l_run)[2]) {
+  const long long base = (static_cast<long long>(x.b) * p.heads + x.h) * p.lq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.lq) continue;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      const float2 v = *acc_at(p, x, row, dt * 8 + t * 2);
+      o[dt][2 * r] = v.x;
+      o[dt][2 * r + 1] = v.y;
+    }
+    m_run[r] = p.m[base + row];
+    if (t == 0) l_run[r] = p.l[base + row];
+  }
+  __syncwarp();  // every read of m before the quad's first thread writes
+}
+
+// kCarry, not the ring's last step: the state back, unnormalized.
+__device__ __forceinline__ void store_state(const Params& p, const Item& x,
+                                            int row0, int t,
+                                            const float (&o)[16][4],
+                                            const float (&m_run)[2],
+                                            const float (&l_run)[2]) {
+  float l_sum[2];
+  quad_sum(l_run, l_sum);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.lq) continue;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      *acc_at(p, x, row, dt * 8 + t * 2) =
+          make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
     }
   }
+  store_stats(p, x, row0, t, m_run, l_sum);
 }
 
 // Block w of the grid takes work items w, w + gridDim.x, ... (one SM's
 // worth of blocks, or one block per item).
-template <bool kStats>
+template <Variant V>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const Params p, int items,
                      const __grid_constant__ CUtensorMap map_q,
@@ -451,10 +539,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0, qi = 0;
   for (int w = blockIdx.x; w < items; w += gridDim.x) {
     const Item x(p, w);
+    const int row0 = x.m0 + wg * kWgRows + warp * 16 + lane / 4;
     float o[kD / 8][4];
     zero_acc(o);
     float m_run[2] = {kNegInf, kNegInf};
     float l_run[2] = {0.f, 0.f};  // this thread's share; summed over the quad
+    if constexpr (V == kCarry) {
+      if (!p.first) load_state(p, x, row0, lane % 4, o, m_run, l_run);
+    }
+    // an item with no key (k_len 0) keeps what it holds: zeros, or the
+    // carried state as it came
     if (x.n_tiles > 0) {
       mbar_wait(sm.bar_q, qi & 1);
       prescale_q(sm.q_ptr, wg, tid % 128, p.qscale);
@@ -462,17 +556,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       it += x.n_tiles;
       ++qi;
     }
-    store_rows<kStats>(p, x, x.m0 + wg * kWgRows + warp * 16 + lane / 4,
-                       lane % 4, o, m_run, l_run);
+    if (V == kCarry && !p.last) {
+      store_state(p, x, row0, lane % 4, o, m_run, l_run);
+    } else {
+      store_rows<V != kPlain>(p, x, row0, lane % 4, o, m_run, l_run);
+    }
   }
 }
 
-template <bool kStats>
+template <Variant V>
 int launch(const Params& p, const void* q, const void* k, const void* v,
            int head_dim, const long long* st, void* stream) {
   if (head_dim != kD) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.batch == 0 || p.heads == 0 || p.lq == 0) return 0;
@@ -499,8 +596,8 @@ int launch(const Params& p, const void* q, const void* k, const void* v,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = min(items, sms);
-  flash_fwd_kernel<kStats><<<blocks, kThreads, kSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<V><<<blocks, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
       p, items, map_q, map_k, map_v);
   return static_cast<int>(cudaGetLastError());
 }
@@ -512,6 +609,9 @@ Params make_params(void* o, void* m, void* l, const void* klens, int batch,
   p.o = static_cast<__nv_bfloat16*>(o);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
+  p.acc = nullptr;
+  p.first = 1;
+  p.last = 1;
   p.klens = static_cast<const int*>(klens);
   p.batch = batch;
   p.heads = heads;
@@ -539,7 +639,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   const long long st[9] = {sqb, sql, sqn, skb, skl, skn, svb, svl, svn};
   const Params p = make_params(o, nullptr, nullptr, klens, batch, heads, lq,
                                lk, sob, sol, son, qscale);
-  return launch<false>(p, q, k, v, head_dim, st, stream);
+  return launch<kPlain>(p, q, k, v, head_dim, st, stream);
 }
 
 // The stats variant (replaces _flash_kernel_stats): also writes m and l,
@@ -554,5 +654,25 @@ extern "C" int flash_fwd_stats_bf16(
   const long long st[9] = {sqb, sql, sqn, skb, skl, skn, svb, svl, svn};
   const Params p = make_params(o, m, l, klens, batch, heads, lq, lk, sob, sol,
                                son, qscale);
-  return launch<true>(p, q, k, v, head_dim, st, stream);
+  return launch<kStats>(p, q, k, v, head_dim, st, stream);
+}
+
+// The ring's step (kCarry): the state acc (fp32 [B, Lq, N, D]) and m, l
+// (fp32 [B, N, Lq]), all contiguous, read unless `first` and written back
+// in place; with `last`, o (bf16) = acc / l (1 where l = 0) and the final
+// m, l instead of the state's acc.
+extern "C" int flash_fwd_carry_bf16(
+    const void* q, const void* k, const void* v, void* o, void* acc,
+    void* m, void* l, const void* klens, int batch, int heads, int lq,
+    int lk, int head_dim, long long sqb, long long sql, long long sqn,
+    long long skb, long long skl, long long skn, long long svb,
+    long long svl, long long svn, long long sob, long long sol,
+    long long son, float qscale, int first, int last, void* stream) {
+  const long long st[9] = {sqb, sql, sqn, skb, skl, skn, svb, svl, svn};
+  Params p = make_params(o, m, l, klens, batch, heads, lq, lk, sob, sol, son,
+                         qscale);
+  p.acc = static_cast<float*>(acc);
+  p.first = first;
+  p.last = last;
+  return launch<kCarry>(p, q, k, v, head_dim, st, stream);
 }

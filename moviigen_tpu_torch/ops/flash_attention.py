@@ -17,13 +17,14 @@ gives them in the JAX layout ``[B, Lq, N]``, m in natural-log units.
 
 Each kernel has a plain twin here with the same arithmetic:
 
-| kernel (``csrc/``)                 | replaces (Pallas)        | plain twin                     |
-|------------------------------------|--------------------------|--------------------------------|
-| ``flash_fwd.cu`` forward           | ``_flash_kernel``        | ``flash_attention_plain``      |
-| ``flash_fwd.cu`` stats variant     | ``_flash_kernel_stats``  | ``flash_attention_stats_plain``|
-| ``flash_bwd.cu`` dKV               | ``_flash_bwd_dkv_kernel``| ``flash_bwd_plain``            |
-| ``flash_bwd.cu`` dQ                | ``_flash_bwd_dq_kernel`` | ``flash_bwd_plain``            |
-| ``flash_fwd_f32.cu`` fp32 forward  | ``_flash_kernel`` (fp32) | ``flash_attention_plain``      |
+| kernel (``csrc/``)                | replaces (Pallas)              | plain twin                      |
+|-----------------------------------|--------------------------------|---------------------------------|
+| ``flash_fwd.cu`` forward          | ``_flash_kernel``              | ``flash_attention_plain``       |
+| ``flash_fwd.cu`` stats variant    | ``_flash_kernel_stats``        | ``flash_attention_stats_plain`` |
+| ``flash_fwd.cu`` carried variant  | ``_flash_kernel_stats`` (ring) | ``flash_attention_carry_plain`` |
+| ``flash_bwd.cu`` dKV              | ``_flash_bwd_dkv_kernel``      | ``flash_bwd_plain``             |
+| ``flash_bwd.cu`` dQ               | ``_flash_bwd_dq_kernel``       | ``flash_bwd_plain``             |
+| ``flash_fwd_f32.cu`` fp32 forward | ``_flash_kernel`` (fp32)       | ``flash_attention_plain``       |
 
 A CUDA tensor goes to the kernels, a CPU tensor to the twins. There is no
 fallback between the two: what a kernel does not take raises. Under
@@ -33,9 +34,14 @@ VJP: the stats forward, then the two backward kernels; otherwise it runs
 the forward-only kernel: ``flash_fwd.cu`` for bf16 with D = 128,
 ``flash_fwd_f32.cu`` for fp32 with D a multiple of 8 up to 128 (the CLIP
 tower of i2v, D = 80, which neither package differentiates: fp32 CUDA
-tensors under autograd raise). Each wrapper counts its launches on
-``flash_attention`` (``launches``, ``stats_launches``, ``dkv_launches``,
-``dq_launches``, ``f32_launches``).
+tensors under autograd raise). The ring's forward (``parallel/ring.py``)
+runs ``flash_attention_carry`` once per key shard: the carried variant
+resumes the online softmax from an fp32 state (the unnormalized output,
+m and l) that it updates in place, and its last step writes the output
+and the stats; where the JAX ring merges the stats kernel's normalized
+bf16 partials, each output is rounded once. Each wrapper counts its
+launches on ``flash_attention`` (``launches``, ``stats_launches``,
+``carry_launches``, ``dkv_launches``, ``dq_launches``, ``f32_launches``).
 
 All four are built for Hopper: every product is a ``wgmma`` on
 128-byte-swizzled shared tiles that a producer warp fills by TMA through an
@@ -70,8 +76,8 @@ _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)
 # the fp32 forward (csrc/flash_fwd_f32.cu) takes D a multiple of 8 up to this
 F32_MAX_HEAD_DIM = 128
-COUNTERS = ("launches", "stats_launches", "dkv_launches", "dq_launches",
-            "f32_launches")
+COUNTERS = ("launches", "stats_launches", "carry_launches", "dkv_launches",
+            "dq_launches", "f32_launches")
 
 
 def _qscale(scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -86,6 +92,15 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
         .float()
 
 
+class CarryState(NamedTuple):
+    """The online softmax carried between the ring's steps: acc, the
+    unnormalized output Σ 2^(s − m)·v, fp32 [B, Lq, N, D]; m (base 2) and
+    l, fp32 [B, N, Lq]."""
+    acc: torch.Tensor
+    m: torch.Tensor
+    l: torch.Tensor
+
+
 def _key_valid(k_lens: Optional[torch.Tensor], b: int, j0: int, nk: int,
                device) -> Optional[torch.Tensor]:
     """[B, 1, 1, nk] mask of keys j0 .. j0 + nk below ``k_lens``."""
@@ -95,24 +110,37 @@ def _key_valid(k_lens: Optional[torch.Tensor], b: int, j0: int, nk: int,
     return torch.arange(j0, j0 + nk, device=device).view(1, 1, 1, -1) < klen
 
 
-def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+def flash_attention_carry_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor,
                                 k_lens: Optional[torch.Tensor] = None,
+                                state: Optional[CarryState] = None,
+                                last: bool = True,
                                 scale: Optional[float] = None,
                                 block_k: int = 512):
     """The kernels' forward arithmetic in plain PyTorch: the same prescale,
     base-2 online softmax over key blocks of ``block_k`` and P cast, so
     memory stays O(B·N·Lq·block_k). q: [B, Lq, N, D]; k/v: [B, Lk, N, D].
-    Returns (out [B, Lq, N, D], m [B, N, Lq], l [B, N, Lq]), m base 2."""
+
+    The ring's step (the ``kCarry`` kernel's twin): the online softmax
+    resumes from ``state`` (None: nothing attended yet) and, unless
+    ``last``, returns the new state (acc, m, l) unnormalized; with ``last``
+    it returns (out [B, Lq, N, D] in q's dtype, m, l). Chained over key
+    shards in natural order, each a multiple of ``block_k``, it is one
+    pass over all the keys, bit for bit."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if scale is None:
         scale = d ** -0.5
     qs = _prescale(q, scale)
-    m = torch.full((b, n, lq, 1), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, n, lq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, n, lq, d), dtype=torch.float32, device=q.device)
+    if state is None:
+        m = torch.full((b, n, lq, 1), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, n, lq, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, n, lq, d), dtype=torch.float32,
+                          device=q.device)
+    else:
+        acc = state.acc.permute(0, 2, 1, 3)
+        m, l = state.m[..., None], state.l[..., None]
     for j0 in range(0, lk, block_k):
         kb = k[:, j0:j0 + block_k].permute(0, 2, 1, 3).float()
         vb = v[:, j0:j0 + block_k].permute(0, 2, 1, 3)
@@ -128,9 +156,23 @@ def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb.float())
         m = m_next
+    if not last:
+        return CarryState(acc.permute(0, 2, 1, 3), m[..., 0], l[..., 0])
     l_div = torch.where(l == 0, torch.ones_like(l), l)
     out = (acc / l_div).to(q.dtype).permute(0, 2, 1, 3)
     return out, m[..., 0], l[..., 0]
+
+
+def flash_attention_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                k_lens: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None,
+                                block_k: int = 512):
+    """The stats kernel's plain twin: ``flash_attention_carry_plain``'s
+    first and last step at once. Returns (out [B, Lq, N, D], m [B, N, Lq],
+    l [B, N, Lq]), m base 2."""
+    return flash_attention_carry_plain(q, k, v, k_lens, None, True, scale,
+                                       block_k)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -257,6 +299,10 @@ def _kernel_fn(lib_name: str, fn_name: str, argtypes):
 _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
 _FWD_STATS_ARGS = [ctypes.c_void_p] * 2 + _FWD_ARGS
+_FWD_CARRY_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 _BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
@@ -335,6 +381,57 @@ def flash_attention_stats_cuda(q: torch.Tensor, k: torch.Tensor,
     out, m, l = _fwd_cuda(q, k, v, k_lens, scale, stats=True)
     kernels.count_launch(flash_attention, "stats_launches")
     return out, m, l
+
+
+def _check_state(state: CarryState, b: int, lq: int, n: int, d: int,
+                 device) -> None:
+    for name, x, shape in (("acc", state.acc, (b, lq, n, d)),
+                           ("m", state.m, (b, n, lq)),
+                           ("l", state.l, (b, n, lq))):
+        if (x.shape != shape or x.dtype != torch.float32
+                or not x.is_contiguous() or x.device != device):
+            raise ValueError(f"flash carry kernel: state {name} must be "
+                             f"fp32 {list(shape)} contiguous on {device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+
+
+def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               k_lens: Optional[torch.Tensor] = None,
+                               state: Optional[CarryState] = None,
+                               last: bool = True,
+                               scale: Optional[float] = None):
+    """Launch the ring's step (``flash_fwd.cu`` ``kCarry``): what
+    ``flash_attention_carry_plain`` returns. ``state`` (None on the first
+    step) is read and, unless ``last``, written back in place and
+    returned; with ``last`` the bf16 output and the final m, l (written
+    into the state's m, l)."""
+    b, lq, lk, n, d, k_lens = _check_qkv(q, k, v, k_lens)
+    if scale is None:
+        scale = d ** -0.5
+    first = state is None
+    if first:
+        state = CarryState(
+            None if last else torch.empty((b, lq, n, d), dtype=torch.float32,
+                                          device=q.device),
+            *(torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+              for _ in range(2)))
+    else:
+        _check_state(state, b, lq, n, d, q.device)
+    out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device) \
+        if last else None
+    fn = _kernel_fn("flash_fwd", "flash_fwd_carry_bf16", _FWD_CARRY_ARGS)
+    sto = out.stride()[:3] if last else (0, 0, 0)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out),
+             _ptr(state.acc), state.m.data_ptr(), state.l.data_ptr(),
+             _ptr(k_lens), b, n, lq, lk, d, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], *sto,
+             float(_qscale(scale, q.dtype)), int(first), int(last),
+             _stream(q))
+    _raise_on(err, "flash carry kernel")
+    kernels.count_launch(flash_attention, "carry_launches")
+    return (out, state.m, state.l) if last else state
 
 
 class BwdOperands(NamedTuple):
@@ -531,6 +628,22 @@ def flash_attention_with_stats(q: torch.Tensor, k: torch.Tensor,
     out, m, l = fwd(q, k, v, k_lens, scale)
     return (out, (m * (1.0 / LOG2E)).transpose(1, 2),
             l.transpose(1, 2))
+
+
+def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_lens: Optional[torch.Tensor] = None,
+                          state: Optional[CarryState] = None,
+                          last: bool = True, scale: Optional[float] = None,
+                          backend: str = "auto"):
+    """One step of the ring's forward over the key shard it holds: the
+    online softmax resumed from ``state`` (None on the first step); the
+    new ``CarryState`` or, with ``last``, (out in q's dtype, m base 2, l)
+    with m, l [B, N, Lq]. Not differentiable. CUDA tensors run the
+    ``kCarry`` kernel (the state updated in place) unless
+    ``backend="plain"``, which runs the plain twin on any device."""
+    fwd = flash_attention_carry_cuda if q.is_cuda and backend == "auto" \
+        else flash_attention_carry_plain
+    return fwd(q, k, v, k_lens, state, last, scale)
 
 
 def reset_launch_counts() -> None:

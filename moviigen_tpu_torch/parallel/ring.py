@@ -4,22 +4,25 @@ Counterpart of ``moviigen_tpu/parallel/ring.py`` (``_local_klens``,
 ``_ring_fwd_loop``, ``ring_self_attention`` and the ring-level custom VJP
 ``_ring_flash``). Each rank
 keeps its query shard and passes its K/V shard around the ring
-(``Comm.ring_shift``); at every step it runs the stats forward
-(``ops.flash_attention.flash_attention_with_stats``: the ``flash_fwd.cu``
-``kStats`` kernel on the card, its plain twin on the CPU) on the shard it
-holds, with that shard's own valid key count, and merges the partial into
-its accumulator with the online softmax (``ring_merge``). No rank ever
-holds the whole sequence's K/V.
+(``Comm._ring_shift``: both loops run with grad off); at every step it
+runs ``ops.flash_attention.flash_attention_carry`` (the ``flash_fwd.cu``
+``kCarry`` kernel on the card, its plain twin on the CPU) on the shard it
+holds, with that shard's own valid key count. No rank ever holds the
+whole sequence's K/V.
 
-The merge runs in fp32 on natural-log stats, exactly as ``ring.py:106-117``
-does: o, m and l are carried, o is renormalized at every step, and a row
-that has attended to nothing (l = 0) is divided by 1. A key shard that
-lies wholly in the padding arrives with ``k_len`` 0; the stats kernel
-gives it m = -1e30 (base 2) and l = 0, so it adds nothing.
+The online softmax is carried through the kernel: each step resumes from
+the fp32 state the last one left (the unnormalized output, m in base 2
+and l) and the last step writes the output, divided by l once (by 1
+where l = 0), with the global stats. So each output is rounded to bf16
+once, as on one card. The JAX ring instead merges each shard's
+normalized partial, bf16 there, into an fp32 accumulator in natural-log
+units (``ring.py:106-117``); ``ring_merge`` keeps that form of the
+merge, which no path of the port runs. A key shard that lies wholly in
+the padding arrives with ``k_len`` 0 and passes the state through.
 
 Under autograd the ring is one ``torch.autograd.Function``
 (``RingAttention``, the JAX ``_ring_flash_fwd`` / ``_ring_flash_bwd``).
-The forward keeps only the home shards and the merged (o, m, l); the
+The forward keeps only the home shards and the final (out, m, l); the
 backward rotates K/V again (rematerialized, never saved) together with
 fp32 dK/dV accumulators, and at each of the sp steps runs one pair
 backward (``flash_bwd_cuda``: the dKV and dQ kernels on the card,
@@ -37,8 +40,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.flash_attention import (LOG2E, flash_attention_with_stats,
-                                   flash_bwd_cuda, flash_bwd_plain)
+from ..ops.flash_attention import (flash_attention_carry, flash_bwd_cuda,
+                                   flash_bwd_plain)
 from .comm import Axis, Comm
 
 _NEG_INF = -1e30
@@ -56,10 +59,12 @@ def _local_klens(k_lens: Optional[torch.Tensor], src: int,
 def ring_merge(o_acc: torch.Tensor, m_acc: torch.Tensor,
                l_acc: torch.Tensor, o_p: torch.Tensor, m_p: torch.Tensor,
                l_p: torch.Tensor):
-    """One online-softmax merge step (``ring.py:106-117``): the
-    accumulator (o_acc fp32 [B, Lq, N, D], normalized; m_acc, l_acc fp32
-    [B, Lq, N]) and a partial (o_p normalized by l_p, any float dtype)
-    → the merged (o, m, l), all fp32."""
+    """One online-softmax merge step of the JAX ring (``ring.py:106-117``):
+    the accumulator (o_acc fp32 [B, Lq, N, D], normalized; m_acc, l_acc
+    fp32 [B, Lq, N]) and a partial (o_p normalized by l_p, any float
+    dtype) → the merged (o, m, l), all fp32. Not on the port's path (the
+    ring carries its state through ``flash_attention_carry``); kept as the
+    reference form of the merge."""
     m_new = torch.maximum(m_acc, m_p)
     a_old = torch.exp(m_acc - m_new)
     a_new = torch.exp(m_p - m_new)
@@ -72,27 +77,22 @@ def ring_merge(o_acc: torch.Tensor, m_acc: torch.Tensor,
 
 def _ring_fwd_loop(q, k, v, k_lens, comm: Comm, axis: Axis, scale,
                    backend):
-    """The rotating-K/V forward; returns (o fp32, m, l) with the global
-    (natural-log) softmax stats of the local query shard."""
+    """The rotating-K/V forward, grad off: (out in q's dtype, m base 2,
+    l), the global softmax stats [B, N, Lq] of the local query shard."""
     sp = comm.axis_size(axis)
     me = comm.axis_index(axis)
-    b, lq, n, d = q.shape
     shard = k.shape[1]
-    m_acc = torch.full((b, lq, n), _NEG_INF, dtype=torch.float32,
-                       device=q.device)
-    l_acc = torch.zeros_like(m_acc)
-    o_acc = torch.zeros((b, lq, n, d), dtype=torch.float32, device=q.device)
+    state = None
     k_blk, v_blk = k, v
     for step in range(sp):
         src = (me - step) % sp  # the rank the held shard started on
-        o_p, m_p, l_p = flash_attention_with_stats(
-            q, k_blk, v_blk, _local_klens(k_lens, src, shard), scale,
-            backend)
-        o_acc, m_acc, l_acc = ring_merge(o_acc, m_acc, l_acc, o_p, m_p, l_p)
+        state = flash_attention_carry(
+            q, k_blk, v_blk, _local_klens(k_lens, src, shard), state,
+            last=step == sp - 1, scale=scale, backend=backend)
         if step < sp - 1:
-            k_blk = comm.ring_shift(k_blk, axis)
-            v_blk = comm.ring_shift(v_blk, axis)
-    return o_acc, m_acc, l_acc
+            k_blk = comm._ring_shift(k_blk, axis)
+            v_blk = comm._ring_shift(v_blk, axis)
+    return state
 
 
 class RingAttention(torch.autograd.Function):
@@ -101,9 +101,8 @@ class RingAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, k_lens, comm, axis, scale, backend):
-        o, m, l = _ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
-                                 backend)
-        out = o.to(q.dtype)
+        out, m, l = _ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
+                                   backend)
         ctx.save_for_backward(q, k, v, out, m, l, k_lens)
         ctx.args = (comm, axis, scale, backend)
         return out
@@ -114,10 +113,6 @@ class RingAttention(torch.autograd.Function):
         comm, axis, scale, backend = ctx.args
         sp, me = comm.axis_size(axis), comm.axis_index(axis)
         shard = k.shape[1]
-        # the pair backward takes the stats as the kernels keep them:
-        # [B, N, Lq] fp32 contiguous, m in base 2 (the JAX m2 = m·log2 e)
-        m2 = (m * LOG2E).transpose(1, 2).contiguous()
-        l2 = l.transpose(1, 2).contiguous()
         do = g.to(q.dtype)
         bwd = flash_bwd_cuda if q.is_cuda and backend == "auto" \
             else flash_bwd_plain
@@ -129,7 +124,7 @@ class RingAttention(torch.autograd.Function):
             src = (me - step) % sp
             dq_p, dk_p, dv_p = bwd(q, k_blk, v_blk,
                                    _local_klens(k_lens, src, shard), out,
-                                   m2, l2, do, scale)
+                                   m, l, do, scale)
             dq += dq_p.float()
             dk += dk_p.float()
             dv += dv_p.float()

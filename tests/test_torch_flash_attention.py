@@ -132,6 +132,38 @@ def test_plain_matches_pallas_interpret_bf16():
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("k_lens", [None, (2048, 1200)])
+def test_carried_chain_equals_one_pass(k_lens):
+    """The ring's step (``flash_attention_carry``, the plain twin on the
+    CPU) chained over 4 key shards of 512 keys in natural order, each a
+    whole key block of the twin, is ``flash_attention_stats_plain`` over
+    all 2,048 keys bit for bit: out, m and l. With k_lens (2048, 1200)
+    batch entry 1's third shard holds 176 keys and its fourth none: that
+    step passes entry 1's state through unchanged. No kernel launches."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(2, 100, 2, 32, lk=2048, seed=21))
+    kl = None if k_lens is None else torch.tensor(k_lens)
+    want = tfa.flash_attention_stats_plain(q, k, v, kl)
+    before = tfa.launch_counts()
+    state = None
+    for i in range(4):
+        local = None if kl is None else (kl - 512 * i).clamp(0, 512)
+        args = (q, k[:, 512 * i:512 * (i + 1)], v[:, 512 * i:512 * (i + 1)],
+                local, state)
+        if i == 3:
+            got = tfa.flash_attention_carry(*args, last=True)
+            passed = tfa.flash_attention_carry(*args, last=False)
+        else:
+            state = tfa.flash_attention_carry(*args, last=False)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if k_lens is not None:
+        for a, b in zip(passed, state):
+            assert torch.equal(a[1], b[1])
+        assert not torch.equal(passed.acc[0], state.acc[0])
+    assert tfa.launch_counts() == before
+
+
 def test_cpu_tensors_do_not_launch_the_kernel(monkeypatch):
     monkeypatch.setattr(tfa.flash_attention, "launches", 0)
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 64, 2, 128, seed=3))

@@ -263,6 +263,94 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_bwd_cuda(q, k, q, None, q, m, m, q)
 
 
+# ----------------------------------------- the ring's carried forward
+
+# 4 key shards of 1,000 keys (no shard a whole number of 128-key tiles);
+# with k_lens batch entry 1's third shard holds 300 keys, its fourth none.
+CARRY_SHAPES = [(2, 1000, 4000, None), (2, 1000, 4000, (4000, 2300))]
+
+
+def _shards(k, v, k_lens, shards=4):
+    s = k.shape[1] // shards
+    return [(k[:, i * s:(i + 1) * s].contiguous(),
+             v[:, i * s:(i + 1) * s].contiguous(),
+             None if k_lens is None else (k_lens - i * s).clamp(0, s))
+            for i in range(shards)]
+
+
+def _clone(state):
+    """A contiguous copy of a carried state (the kernel updates its own
+    in place; the twin's acc is a permuted view)."""
+    return tfa.CarryState(*(x.clone(memory_format=torch.contiguous_format)
+                            for x in state))
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", CARRY_SHAPES)
+def test_carry_kernel_matches_plain_step_by_step(cuda, b, lq, lk, k_lens):
+    """Each step of the ring's carried forward from the same incoming
+    state (the twin's): the kernel's state after every non-last step
+    (acc, m, l) and its output and stats after the last within
+    ``REL_TOL`` of the twin's; the empty shard's step (batch entry 1)
+    passes the state through bit for bit; one launch a step."""
+    q, k, v = _qkv(cuda, b, lq, lk)
+    kl = _klens(k_lens)
+    state = None
+    for i, (ki, vi, kli) in enumerate(_shards(k, v, kl)):
+        last = i == 3
+        before = tfa.flash_attention.carry_launches
+        got = tfa.flash_attention_carry_cuda(
+            q, ki, vi, kli, None if state is None else _clone(state), last)
+        assert tfa.flash_attention.carry_launches == before + 1
+        want = tfa.flash_attention_carry_plain(q, ki, vi, kli, state, last)
+        for g, w in zip(got, want):
+            _close(g, w)
+        if k_lens is not None and i == 3:
+            for g, w in zip(got[1:], state[1:]):
+                assert torch.equal(g[1], w[1])
+        if k_lens is not None and i == 2:
+            empty_in = _clone(got)
+            empty_out = tfa.flash_attention_carry_cuda(
+                q, *_shards(k, v, kl)[3], empty_in, last=False)
+            for g, w in zip(empty_out, got):
+                assert torch.equal(g[1], w[1])
+        state = want
+
+
+@pytest.mark.parametrize("b,lq,lk,k_lens", CARRY_SHAPES)
+def test_carry_kernel_chained_matches_one_shot_kernel(cuda, b, lq, lk,
+                                                      k_lens):
+    """The carried kernel chained over the key shards in natural order
+    against the one-shot stats kernel over all the keys: out, m and l
+    within ``REL_TOL`` (they differ in the order of l's sums and where
+    a shard's ragged last tile rounds P); first and last at once is the
+    stats kernel's step."""
+    q, k, v = _qkv(cuda, b, lq, lk)
+    kl = _klens(k_lens)
+    want = tfa.flash_attention_stats_cuda(q, k, v, kl)
+    state = None
+    for i, (ki, vi, kli) in enumerate(_shards(k, v, kl)):
+        state = tfa.flash_attention_carry_cuda(q, ki, vi, kli, state,
+                                               last=i == 3)
+    for g, w in zip(state, want):
+        _close(g, w)
+    for g, w in zip(tfa.flash_attention_carry_cuda(q, k, v, kl), want):
+        _close(g, w)
+
+
+def test_carry_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 200, 300)
+    state = tfa.flash_attention_carry_cuda(q, k, v, last=False)
+    for bad in (state._replace(acc=state.acc.bfloat16()),
+                state._replace(m=state.m[:, :, :100]),
+                state._replace(l=state.l.transpose(1, 2).contiguous()
+                               .transpose(1, 2)),
+                state._replace(acc=state.acc.cpu())):
+        with pytest.raises(ValueError, match="state"):
+            tfa.flash_attention_carry_cuda(q, k, v, None, bad)
+    with pytest.raises(ValueError, match="not on"):
+        tfa.flash_attention_carry_cuda(q.cpu(), k.cpu(), v.cpu())
+
+
 # ------------------------------------------------------ the fp32 forward
 
 # fp32 kernel vs plain twin: the twin is full fp32 (no TF32); the kernel's
@@ -839,11 +927,12 @@ def test_w8a8_lora_side_path_on_cuda(cuda):
 
 def test_ring_of_stats_launches_matches_one_shot_kernel(cuda):
     """Ring attention over 4 thread ranks on the card (``ThreadComm``):
-    each rank runs the stats kernel on every key shard as it comes round
-    and merges the partials in fp32 (``ring_merge``); against the one-shot
-    forward kernel within ``REL_TOL`` (a partial's bf16 output is rounded
-    once more than the one-shot's). Batch entry 1's keys end inside the
-    third shard, so its last shard is empty (k_len 0: m = -1e30, l = 0)."""
+    each rank runs the carried kernel on every key shard as it comes
+    round, resuming the online softmax from its fp32 state, and the last
+    step writes the output; against the one-shot forward kernel within
+    ``REL_TOL``. Batch entry 1's keys end inside the third shard, so its
+    last shard is empty (k_len 0: the state passes through). 16 carried
+    launches (4 a rank), no stats launch."""
     from moviigen_tpu_torch.parallel import ring
     from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
 
@@ -857,7 +946,8 @@ def test_ring_of_stats_launches_matches_one_shot_kernel(cuda):
             *(s[c.rank].contiguous() for s in shards), k_lens, c),
             thread_mesh(seq=4))
     torch.cuda.synchronize()
-    assert tfa.launch_counts()["stats_launches"] == 16
+    counts = tfa.launch_counts()
+    assert (counts["carry_launches"], counts["stats_launches"]) == (16, 0)
     _close(torch.cat(outs, dim=1), want)
 
 
@@ -941,28 +1031,25 @@ def test_t5_decoder_on_cuda_matches_the_cpu(cuda):
 
 
 def _ring_global_stats(q, k, v, k_lens, shards):
-    """Each query shard's merged ring forward over every key shard (the
-    stats kernel per pair, ``ring_merge``): (out in q's dtype, m base 2,
-    l), the stats [B, N, Lq] contiguous as the backward takes them."""
+    """Each query shard's ring forward over every key shard (the carried
+    kernel per pair, key shards in the ring's order from the query
+    shard's own): (out in q's dtype, m base 2, l), the stats [B, N, Lq]
+    contiguous as the backward takes them."""
     from moviigen_tpu_torch.parallel import ring
 
     s = q.shape[1] // shards
     out = []
     for i in range(shards):
         qi = q[:, i * s:(i + 1) * s].contiguous()
-        acc = (torch.zeros(qi.shape, device="cuda"),
-               torch.full(qi.shape[:3], -1e30, device="cuda"),
-               torch.zeros(qi.shape[:3], device="cuda"))
-        for j in range(shards):
-            part = tfa.flash_attention_with_stats(
+        state = None
+        for step in range(shards):
+            j = (i - step) % shards
+            state = tfa.flash_attention_carry(
                 qi, k[:, j * s:(j + 1) * s].contiguous(),
                 v[:, j * s:(j + 1) * s].contiguous(),
-                ring._local_klens(k_lens, j, s))
-            acc = ring.ring_merge(*acc, *part)
-        o, m, l = acc
-        out.append((o.to(q.dtype),
-                    (m * tfa.LOG2E).transpose(1, 2).contiguous(),
-                    l.transpose(1, 2).contiguous()))
+                ring._local_klens(k_lens, j, s), state,
+                last=step == shards - 1)
+        out.append(state)
     return out
 
 
@@ -1016,7 +1103,8 @@ def test_ring_attention_backward_on_thread_ranks(cuda):
     first backward collective would otherwise wait for a peer queued
     behind it on the device's one autograd thread). dq, dk, dv against
     the one-shot ``FlashAttention`` backward within ``GRAD_REL_TOL``; 16
-    stats, 16 dKV and 16 dQ launches (4 pairs a rank)."""
+    carried forward, 16 dKV and 16 dQ launches (4 pairs a rank) and no
+    stats launch."""
     from moviigen_tpu_torch.parallel import ring
     from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
 
@@ -1037,8 +1125,8 @@ def test_ring_attention_backward_on_thread_ranks(cuda):
     outs = run_ranks(rank, thread_mesh(seq=4))
     torch.cuda.synchronize()
     counts = tfa.launch_counts()
-    assert (counts["stats_launches"], counts["dkv_launches"],
-            counts["dq_launches"]) == (16, 16, 16)
+    assert (counts["carry_launches"], counts["stats_launches"],
+            counts["dkv_launches"], counts["dq_launches"]) == (16, 0, 16, 16)
     for i in range(3):
         _close(torch.cat([o[i] for o in outs], dim=1), want[i],
                GRAD_REL_TOL)

@@ -250,14 +250,18 @@ def _grad_errors(comm, got, want, dims, axis):
 
 
 def _expected_launches(mode, ring, sp, layers):
-    """Launches of one SP train step with per-block remat on one rank:
-    the cross-attention's stats forward (again in the recompute), dKV and
-    dQ, and the self-attention's: the same over N/sp heads (ulysses), or
-    per key shard around the ring (ring: sp shards, usp: R)."""
-    shards = {"ulysses": 1, "ring": sp, "usp": ring}[mode]
-    return dict(stats_launches=layers * (2 + 2 * shards),
-                dkv_launches=layers * (1 + shards),
-                dq_launches=layers * (1 + shards))
+    """The launches that one SP train step with per-block remat makes on
+    one rank (those it makes at all): the cross-attention's stats forward
+    (again in the recompute), dKV and dQ, and the self-attention's: the
+    same over N/sp heads (ulysses), or per key shard around the ring the
+    carried forward (again in the recompute), dKV and dQ (ring: sp
+    shards, usp: R)."""
+    shards = {"ulysses": 0, "ring": sp, "usp": ring}[mode]
+    counts = dict(stats_launches=layers * (2 + 2 * (mode == "ulysses")),
+                  carry_launches=layers * 2 * shards,
+                  dkv_launches=layers * (1 + max(shards, 1)),
+                  dq_launches=layers * (1 + max(shards, 1)))
+    return {k: v for k, v in counts.items() if v}
 
 
 def worker_library(argv):
