@@ -76,13 +76,18 @@ Phases:
 13. sequence-parallel serving, the mesh's ranks as threads of this
     process (``ThreadComm``; NCCL puts no two ranks on one card): (a) the
     t2v-14B DiT at full width and depth, r1's shape, one forward each in
-    Ulysses sp 2 and 4, ring sp 2 and USP 2 × 2 against the one-process
-    forward, launches counted, seconds beside the one-process forward's;
+    Ulysses sp 2 and 4, ring sp 2 and USP 2 × 2 bit-equal to the
+    one-process forward, launches counted, seconds beside the one-process
+    forward's;
     (b) the kernels at the shapes those modes launch, against their plain
     twins on the same inputs: the forward over Ulysses' N/sp heads and on
-    the cross-attention's query shards, and the ring's carried kernel per
-    (query shard, key shard) step at ring sp 2's 40 heads, USP's 20 (and
-    at 4 shards) against the one-shot kernel, and with an empty key shard
+    the cross-attention's query shards, the ring itself over thread ranks
+    (r1's tokens padded to whole key tiles a shard, the shards walked in
+    natural order) against one card's kernel over the unpadded keys, its
+    largest difference and differing elements counted, and the ring's
+    carried kernel per (query shard, key shard) step at ring sp 2's 40
+    heads, USP's 20 (and at 4 shards) against the one-shot kernel, and
+    with an empty key shard
     against the plain twin step by step, timed beside the stats kernel
     and the eager merge the ring ran before; (c) the
     FSDP variant at sp 2 (block weights as shards gathered per block; a
@@ -118,16 +123,20 @@ Phases:
 17. (only when asked: ``--phases 17``; four cards) the runs of
     ``tools/sp_serve_cards.py`` (the 14B served over 4 ranks, one per
     card over NCCL: Ulysses with per-block gathers, ring, USP, data 2 ×
-    seq 2, int4 and W8A8, and ``scripts/inference.sh``'s 1280×720×81
-    request) and of ``tools/sp_train_cards.py`` (``finetune --sp_size 4``
-    of the 14B in full, the SP step in Ulysses, ring and USP against one
+    seq 2, int4 and W8A8, ``scripts/inference.sh``'s 1280×720×81
+    request, the 1920×832×81 one in Ulysses and ring, i2v, and one card
+    against itself with its keys rolled) and of
+    ``tools/sp_train_cards.py`` (``finetune --sp_size 4`` of the 14B in
+    full, the SP step in Ulysses, ring and USP against one
     card, data 2 × seq 2 with accumulation, a stop and a resume), each
     against one card; raises with fewer than four cards;
 18. the kernels at the shapes those four-card runs launch on each rank,
     on this one card, against their plain twins: the forward (S4's half
     CFG pair, S6's 75,600 tokens over 10 heads and its 18,900-row cross
-    shard), the stats forward, dKV and dQ of T1-T5 (10, 6 and 3 heads over
-    32,760 tokens; the 8,190- and 16,380-row cross shards), the ring's
+    shard, S7's 131,040 tokens over 10 heads, S8's image cross-attention
+    on 1,950- and 18,900-row shards), the ring's carried step at S7's
+    32,768-key shards, the stats forward, dKV and dQ of T1-T5 (10, 6 and
+    3 heads over 32,760 tokens; the 8,190- and 16,380-row cross shards), the ring's
     pairs of 4 and 2 key shards at 12, 6, 40 and 20 heads with an empty
     shard, the int8 GEMM and the activation quantization at S5's 3,900
     rows.
@@ -1032,9 +1041,10 @@ def kernels_line(report):
     bwd = [c for c in train if "kernel" not in c]
     pairs = report.get("sp_train_pairs", []) \
         + report.get("cards_kernels", {}).get("train", [])
-    # the ring's carried forward: 13b's ring groups of the SP modes, 16a's
-    # pairs, 18's four-card shapes
-    carry = report.get("sp_kernels", {}).get("carry", []) + [dict(
+    # the ring's carried forward: 13b's ring groups of the SP modes, 18's
+    # step at S7's ring shards, 16a's pairs, 18's four-card shapes
+    carry = report.get("sp_kernels", {}).get("carry", []) \
+        + report.get("cards_kernels", {}).get("carry", []) + [dict(
         case=c["case"], kernel="carry", N=c["N"], shards=c["shards"],
         max_abs_err=c["carry_max_abs_err"], rel_err=c["carry_rel_err"],
         ms=c["carry_ms"], plain_ms=c["carry_plain_ms"],
@@ -3109,15 +3119,15 @@ SP_CASES = [
 # same keys, and the linears' rows are independent of each other: it must
 # give the one-process bits exactly. The ring carries its online softmax
 # through the kernel in fp32 and rounds each output once, as one card
-# does, but walks the keys in another order, so P is rounded to bf16
-# against another running max: 2.24e-3 of the prediction's norm (2.25e-3
-# when each key shard's partial was rounded to bf16 and merged), the
-# same bits in every call. The bound for ring and USP is about twice
-# that. The controls (``SP_CONTROLS``) show what it can see: a fault of
-# the SP code runs in every block, and one head dropped in every block
-# must read above the bound; one head dropped in block 0 alone reads
-# about as much as the ring's rounding, so a fault that small is left to
-# 13b's step-by-step checks of the ring at the modes' shapes.
+# does; it walks the key shards in natural order on whole 128-key tiles
+# (the sequence padded to a multiple of 128 · sp) and carries each kernel
+# thread's share of l, so it too gives the one-process bits. Any smaller
+# difference is no help: one bf16 step in 2e-5 of the attention's
+# outputs grows to 2.2e-3 of the prediction's norm through the 40 blocks.
+# The bound below is the controls' yardstick (``SP_CONTROLS``): a fault
+# of the SP code runs in every block, and one head dropped in every block
+# must read above it; one head dropped in block 0 alone reads less, so a
+# fault that small is left to 13b's step-by-step checks of the ring.
 SP_RING_REL_TOL = 5e-3
 # (name, blocks, must exceed the bound): the one-process forward with
 # head 0 of those blocks' self-attention dropped (its input columns of
@@ -3127,9 +3137,10 @@ SP_CONTROLS = (("head 0 of block 0 dropped", (0,), False),
 # the modes whose forward 13a also profiles (the one-process one too)
 SP_PROFILED = ("ulysses_sp4", "usp_r2_u2")
 # 13b: r1's attention (B = 2, 7,800 tokens, 40 heads) cut as the modes of
-# SP_CASES cut it, plus the ring at 4 key shards, which no 13a mode runs.
+# SP_CASES cut it, plus ring 4 (heads, key shards, sequence axes), which
+# no 13a mode runs.
 SP_SHAPE = (2, 7800, HEADS)
-SP_RING_EXTRA = ((HEADS, 4),)
+SP_RING_EXTRA = ((HEADS, 4, 4),)
 # 13c: the FSDP variant at full width with the depth cut (the full-depth
 # DiT is 13a's); 13d: world size 1 over NCCL on 8b's directory.
 SP_FSDP_LAYERS, SP_FSDP_T5_LAYERS = 4, 4
@@ -3205,22 +3216,20 @@ def phase_sp_forward(report):
             if not all(torch.equal(o, outs[0]) for o in outs[1:]):
                 raise RuntimeError(f"sp {name}: the ranks disagree")
             rel = float((got - want).norm() / want.norm())
-            exact = mode == "ulysses"
             rows[name] = dict(
                 sp_mode=mode, data=data, ring=ring, seq=seq, s=secs,
                 one_process_s=one_s, rel_norm_err=rel,
                 rel_max_err=float((got - want).abs().max()
                                   / want.abs().max()),
-                bound="bit-equal" if exact else SP_RING_REL_TOL,
+                bound="bit-equal",
                 launches=counts,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             log(f"phase 13a: {name} " + json.dumps(rows[name]))
-            if exact and not torch.equal(got, want):
+            # every mode: Ulysses splits the work items by head, the ring
+            # walks the keys on one card's tiles and in its order
+            if not torch.equal(got, want):
                 raise RuntimeError(f"sp {name}: not bit-equal to the "
                                    f"one-process forward ({rel:.3e})")
-            if rel > SP_RING_REL_TOL:
-                raise RuntimeError(f"sp {name}: relative error {rel:.3e} > "
-                                   f"{SP_RING_REL_TOL}")
             if counts != expected:
                 raise RuntimeError(f"sp {name}: launches {counts}, "
                                    f"expected {expected}")
@@ -3266,19 +3275,22 @@ def phase_sp_forward(report):
 def _sp_kernel_shapes():
     """The attention the modes of ``SP_CASES`` launch at r1's shape:
     Ulysses' forward over N/sp heads and all L tokens (the head counts),
-    the ring groups of ring and USP as (heads, key shards) with
-    ``SP_RING_EXTRA``, and the cross-attention's query shards (L/sp rows
-    against the 512 text keys)."""
+    the ring groups of ring and USP as (heads, key shards, sequence
+    axes' size sp: the tokens are padded to a multiple of 128 · sp) with
+    ``SP_RING_EXTRA``, and the cross-attention's query shards (L/sp rows,
+    of the length ring and USP pad to, against the 512 text keys)."""
+    from moviigen_tpu_torch.parallel.ulysses import sp_seq_len
+
     _, l, n = SP_SHAPE
     heads, rings, rows = set(), set(SP_RING_EXTRA), set()
     for _, mode, _, ring, seq in SP_CASES:
-        rows.add(l // (ring * seq))
+        rows.add(sp_seq_len(l, ring * seq, mode) // (ring * seq))
         if mode == "ulysses":
             heads.add(n // seq)
         elif mode == "ring":
-            rings.add((n, seq))
+            rings.add((n, seq, seq))
         else:
-            rings.add((n // seq, ring))
+            rings.add((n // seq, ring, ring * seq))
     return sorted(heads), sorted(rings), sorted(rows)
 
 
@@ -3301,7 +3313,8 @@ def _sp_fwd_case(name, q, k, v, plain_iters=3):
                 rel_err=rel,
                 ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                 iters=plain_iters, warmup=1),
+                                 iters=plain_iters,
+                                 warmup=min(1, plain_iters - 1)),
                 library_ms=cuda_ms(lambda: torch.nn.functional
                                    .scaled_dot_product_attention(qt, kt,
                                                                  vt)),
@@ -3309,40 +3322,66 @@ def _sp_fwd_case(name, q, k, v, plain_iters=3):
                 before_redesign_ms=None)
 
 
-def _sp_ring_case(n, shards, gen):
-    """The ring of ``shards`` key shards at ``n`` heads: for each query
-    shard the carried kernel on each key shard in the ring's order (its
-    own first; its local ``k_lens``); dense against the one-shot kernel,
-    then with a ``k_lens`` that empties batch entry 1's last key shard
-    against the plain twin, each step against the twin's step
+def _sp_ring_case(n, shards, sp, gen):
+    """The ring of ``shards`` key shards at ``n`` heads over r1's 7,800
+    tokens padded as ring and USP over ``sp`` ranks pad them
+    (``sp_seq_len``: 7,936 at ring 2, 8,192 at sp 4; shards of whole key
+    tiles). First the path itself: ``ring_self_attention`` over
+    thread ranks with the pad masked, against the one-shot kernel over
+    the 7,800 keys unpadded, as one card runs it: the largest difference
+    and the count of elements that differ (the shards walked in natural
+    order on 128-key boundaries leave only the order of l's sums). Then
+    for each query shard the carried kernel on each key shard in natural
+    order (its local ``k_lens``): dense against the one-shot kernel, then
+    with a ``k_lens`` that empties batch entry 1's last key shard against
+    the plain twin, each step against the twin's step
     (``_check_carry``), the empty shard's step passing entry 1's state
     through bit for bit. A middle step timed (state read and written)
-    with its plain twin, SDPA and its bound, beside what the ring ran
-    before: the stats kernel and ``ring.ring_merge``'s eager merge."""
+    with its plain twin, SDPA and its bound, beside what the ring once
+    ran in its place: the stats kernel and ``ring.ring_merge``'s eager
+    merge."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
     from moviigen_tpu_torch.parallel import ring
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+    from moviigen_tpu_torch.parallel.ulysses import sp_seq_len
 
-    b, l, _ = SP_SHAPE
+    b, tokens, _ = SP_SHAPE
     d = HEAD_DIM
+    l = sp_seq_len(tokens, sp, "ring")
     shard = l // shards
     name = f"s_ring_B{b}_L{shard}x{shards}_N{n}"
     q, k, v = (torch.randn(b, l, n, d, generator=gen, device=DEVICE,
                            dtype=torch.bfloat16) for _ in range(3))
     cut = [[c.contiguous() for c in x.split(shard, dim=1)]
            for x in (q, k, v)]
+    real = torch.full((b,), tokens, dtype=torch.int32, device=DEVICE)
+    path = torch.cat(run_ranks(lambda c: ring.ring_self_attention(
+        *(x[c.rank] for x in cut), real, c), thread_mesh(seq=shards)),
+        dim=1)[:, :tokens]
+    one = fa.flash_attention_cuda(*(x[:, :tokens].contiguous()
+                                    for x in (q, k, v)))
+    one_pass = dict(max_abs=float((path.float() - one.float()).abs().max()),
+                    differing=int((path != one).sum()),
+                    elements=path.numel(), bit_equal=torch.equal(path, one))
+    path_err = _check(name, "the ring's path vs one card's kernel", path,
+                      one, FLASH_REL_TOL)
+    if not one_pass["bit_equal"]:
+        raise RuntimeError(f"{name}: the ring's path is not one card's "
+                           f"kernel bit for bit: {one_pass}")
+    del path, one
 
     def ring_out(k_lens, check=False):
         outs, errs = [], []
         for i in range(shards):
             state = plain = None
             for step in range(shards):
-                j = (i - step) % shards
+                j = step  # natural order, as the ring walks the shards
                 last = step == shards - 1
                 args = (cut[0][i], cut[1][j], cut[2][j],
                         ring._local_klens(k_lens, j, shard))
-                held = [x[1].clone() for x in state] \
+                held = [x[1].clone() for x in state[:3]] \
                     if check and state is not None and j == shards - 1 \
                     else None
                 state = fa.flash_attention_carry_cuda(*args, state, last)
@@ -3363,7 +3402,7 @@ def _sp_ring_case(n, shards, gen):
     got, _ = ring_out(None)
     errs.append(_check(name, "ring vs one-shot kernel", got,
                        fa.flash_attention_cuda(q, k, v), FLASH_REL_TOL))
-    k_lens = torch.tensor([l, (shards - 1) * shard], dtype=torch.int32,
+    k_lens = torch.tensor([tokens, (shards - 1) * shard], dtype=torch.int32,
                           device=DEVICE)
     if int(ring._local_klens(k_lens, shards - 1, shard)[1]) != 0:
         raise RuntimeError(f"{name}: batch entry 1's last key shard is not "
@@ -3376,16 +3415,17 @@ def _sp_ring_case(n, shards, gen):
     q0, k0, v0 = cut[0][0], cut[1][1], cut[2][1]
     state = fa.flash_attention_carry_cuda(q0, cut[1][0], cut[2][0],
                                           last=False)
-    plain = fa.CarryState(*(x.clone() for x in state))
+    plain = fa.CarryState(*(x.clone() for x in state[:3]))
     part = fa.flash_attention_with_stats(q0, k0, v0)
     acc = ring.ring_merge(part[0].float(), part[1], part[2], *part)
     qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
     bound_ms, bound_by = carry_bound(b, shard, shard, n)
     row = dict(
         case=name, kernel="carry", B=b, Lq=shard, Lk=shard, N=n,
-        shards=shards, max_abs_err=max(e[0] for e in errs),
-        rel_err=max(e[1] for e in errs), ring_rel_err=errs[0][1],
-        empty_shard_rel_err=errs[1][1],
+        shards=shards, max_abs_err=max(e[0] for e in errs + [path_err]),
+        rel_err=max(e[1] for e in errs + [path_err]),
+        ring_rel_err=errs[0][1], empty_shard_rel_err=errs[1][1],
+        path_vs_one_card=one_pass,
         ms=cuda_ms(lambda: fa.flash_attention_carry_cuda(
             q0, k0, v0, None, state, False)),
         plain_ms=cuda_ms(lambda: fa.flash_attention_carry_plain(
@@ -3432,8 +3472,8 @@ def phase_sp_ring_pieces(report):
             fwd.append(_sp_fwd_case(f"x_cross_B{b}_Lq{lq}_Lk512", q, k, v))
             log("phase 13b: " + json.dumps(fwd[-1]))
         del q, k, v
-        for nr, shards in rings:
-            carry.append(_sp_ring_case(nr, shards, gen))
+        for nr, shards, sp in rings:
+            carry.append(_sp_ring_case(nr, shards, sp, gen))
             log("phase 13b: " + json.dumps(carry[-1]))
     report["sp_kernels"] = dict(fwd=fwd, carry=carry)
     torch.cuda.empty_cache()
@@ -4319,7 +4359,7 @@ def _sp_pair_case(n, gen, b=2, l=None, shards=None):
                       fa.flash_attention_stats_plain(q0, k0, v0))]
     mid = fa.flash_attention_carry_cuda(q0, cut[1][-1], cut[2][-1],
                                         last=False)
-    mid_plain = fa.CarryState(*(x.clone() for x in mid))
+    mid_plain = fa.CarryState(*(x.clone() for x in mid[:3]))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q0, k0, v0))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4782,6 +4822,17 @@ CARDS_FWD = [
     # S6: 1280x720x81 (75,600 tokens) under Ulysses 4, CFG batched
     ("c_s6_self_B2_L75600_N10", 2, 75600, 75600, 10),
     ("c_s6_cross_B2_Lq18900_Lk512", 2, 18900, 512, 40),
+    # S7: 1920x832x81 (131,040 tokens) under Ulysses 4, CFG batched
+    ("c_s7_self_B2_L131040_N10", 2, 131040, 131040, 10),
+    # S8: i2v's image cross-attention (257 CLIP tokens) on the Ulysses
+    # query shards of r1's shape and of 1280x720x81
+    ("c_s8_img_B2_Lq1950_Lk257", 2, 1950, 257, 40),
+    ("c_s8_img_B2_Lq18900_Lk257", 2, 18900, 257, 40),
+]
+CARDS_CARRY = [
+    # name, B, key shard, N: a middle step of the ring's carried forward
+    # S7 in ring 4: 131,040 tokens padded to 131,072, shards of 32,768
+    ("c_s7_ring_B2_L32768x4_N40", 2, 32768, 40),
 ]
 CARDS_TRAIN = [
     # name, B, Lq, Lk, N: the stats forward, dKV and dQ at 32,760 tokens
@@ -4879,20 +4930,60 @@ def _cards_train_case(name, b, lq, lk, n, gen):
     return row
 
 
+def _carry_step_case(name, b, shard, n, gen):
+    """A middle step of the ring's carried forward at a four-card shape:
+    the state from a first step over one key shard, then the step over
+    the next against its plain twin's from the same state
+    (``_check_carry``), timed beside the twin, SDPA over the pair and the
+    bound (``carry_bound``)."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+
+    q, k0, k1, v0, v1 = (torch.randn(b, shard, n, HEAD_DIM, generator=gen,
+                                     device=DEVICE, dtype=torch.bfloat16)
+                         for _ in range(5))
+    state = fa.flash_attention_carry_cuda(q, k0, v0, last=False)
+    kept = fa.CarryState(*(x.clone() for x in state))
+    got = fa.flash_attention_carry_cuda(
+        q, k1, v1, None, fa.CarryState(*(x.clone() for x in kept)), False)
+    want = fa.flash_attention_carry_plain(q, k1, v1, None, kept, False)
+    errs = _check_carry(name, got, want)
+    del got, want, k0, v0
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k1, v1))
+    bound_ms, bound_by = carry_bound(b, shard, shard, n)
+    row = dict(
+        case=name, kernel="carry", B=b, Lq=shard, Lk=shard, N=n,
+        max_abs_err=max(e[0] for e in errs),
+        rel_err=max(e[1] for e in errs),
+        ms=cuda_ms(lambda: fa.flash_attention_carry_cuda(
+            q, k1, v1, None, state, False)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_carry_plain(
+            q, k1, v1, None, kept, False), iters=1, warmup=0),
+        library_ms=cuda_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qt, kt, vt)),
+        library="SDPA forward", bound_ms=bound_ms, bound_by=bound_by,
+        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q, k1, v1)))
+    del q, k1, v1, qt, kt, vt, state, kept
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_cards_kernels(report):
     """18. The kernels at the shapes the four-card runs launch
     (``CARDS_*``), on this one card, each against its plain twin on the
     same inputs, timed beside its bound and its library call: the forward
-    (S4, S6), the stats forward, dKV and dQ (T1-T5), the ring's pairs with
-    the global stats and an empty key shard (T3, and the 14B's ring and
-    USP at 32,760 tokens), the int8 GEMM (bit-equal, three bias modes) and
-    the activation quantization (bit-equal) of S5's W8A8 ranks. Launches
-    here are comparisons, not a path's."""
+    (S4, S6, S7's Ulysses, S8's image cross-attention), the ring's carried
+    step at S7's ring 4 shards, the stats forward, dKV and dQ (T1-T5), the
+    ring's pairs with the global stats and an empty key shard (T3, and the
+    14B's ring and USP at 32,760 tokens), the int8 GEMM (bit-equal, three
+    bias modes) and the activation quantization (bit-equal) of S5's W8A8
+    ranks. Launches here are comparisons, not a path's."""
     import torch
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(18)
-    fwd, train, pairs = [], [], []
+    fwd, carry, train, pairs = [], [], [], []
     with torch.no_grad():
         for name, b, lq, lk, n in CARDS_FWD:
             q = torch.randn(b, lq, n, HEAD_DIM, generator=gen, device=DEVICE,
@@ -4904,6 +4995,9 @@ def phase_cards_kernels(report):
             log("phase 18: " + json.dumps(fwd[-1]))
             del q, k, v
             torch.cuda.empty_cache()
+        for name, b, shard, n in CARDS_CARRY:
+            carry.append(_carry_step_case(name, b, shard, n, gen))
+            log("phase 18: " + json.dumps(carry[-1]))
     for name, b, lq, lk, n in CARDS_TRAIN:
         train.append(_cards_train_case(name, b, lq, lk, n, gen))
         log("phase 18: " + json.dumps(train[-1]))
@@ -4913,14 +5007,15 @@ def phase_cards_kernels(report):
     int8_kernel_cases(report, CARDS_INT8, key="cards_int8", phase="18")
     quantize_kernel_cases(report, CARDS_QUANT, key="cards_quantize",
                           phase="18")
-    report["cards_kernels"] = dict(fwd=fwd, train=train + pairs)
+    report["cards_kernels"] = dict(fwd=fwd, carry=carry,
+                                   train=train + pairs)
     torch.cuda.empty_cache()
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_cards(report):
     """17. (only when asked) ``tools/sp_serve_cards.py`` and
-    ``tools/sp_train_cards.py`` at their defaults: the runs S1-S6 and
+    ``tools/sp_train_cards.py`` at their defaults: the runs S0-S8 and
     T1-T5 on four cards, one rank per card over NCCL. T1 runs last, in a
     launch of its own: its final checkpoint (the 14B's weights and AdamW
     moments, 160 GiB) needs a disk that holds it, and a tool stops at its

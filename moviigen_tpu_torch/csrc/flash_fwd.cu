@@ -21,11 +21,14 @@
 // launch of a ring writes the bf16 output and (m, l) as kStats does. Each
 // thread reads and writes only its own rows' state (m is read by the four
 // threads of a quad, written by the first), so the update has no race.
-// Chained over key shards it rounds each output to bf16 once, as the
-// one-shot kernel does, not once per shard; in natural key order it
-// differs from the one-shot kernel only in the order of l's sums. The
-// state adds 2 x 4 bytes per output element to each launch's traffic
-// (read and written): 160 MB at B = 2, 1,950 query rows and 40 heads.
+// Besides l, the state keeps each quad thread's own share of it (l_part,
+// [B, N, Lq, 4]), which the next launch resumes from, so l is summed in
+// the one-shot kernel's order. Chained over key shards it rounds each
+// output to bf16 once, as the one-shot kernel does, not once per shard;
+// in natural key order over shards of whole 128-key tiles it is the
+// one-shot kernel, bit for bit. The state adds 2 x 4 bytes per output
+// element to each launch's traffic (read and written): 160 MB at B = 2,
+// 1,950 query rows and 40 heads.
 //
 // What bounds it: tensor-core operations. Self-attention does
 // 4 * B * N * Lq * Lk * D flops on 4 * B * L * N * D * 2 bytes, about
@@ -115,11 +118,13 @@ struct Params {
   float* m;          // [B, N, Lq] row max (base 2): kStats, kCarry
   float* l;          // [B, N, Lq] softmax normalizer: kStats, kCarry
   float* acc;        // [B, Lq, N, D] unnormalized output: kCarry
+  float* l_part;     // [B, N, Lq, 4] each quad thread's share of l: kCarry
   const int* klens;  // [B] or null
   int batch, heads, lq, lk;
   long long sob, sol, son;
   float qscale;      // bf16(scale * log2 e), as a float
   int first, last;   // kCarry: no state to read; write the output
+  int l_part_in;     // kCarry: resume the shares from l_part, not from l
 };
 
 // A block's unit of work: 128 query rows m0 .. m0 + 127 of head h, batch
@@ -444,8 +449,10 @@ __device__ __forceinline__ float2* acc_at(const Params& p, const Item& x,
 
 // kCarry: load this thread's rows of the carried state into the registers
 // the key loop works on (the layout store_rows writes them in): o, m on
-// the quad's four threads, l on its first (l_run is a share summed over
-// the quad at the end; the other three start from 0).
+// the quad's four threads, and l_run, the thread's share of l that is
+// summed over the quad at the end: its own from l_part where the last
+// launch kept them (l_part_in), else l on the quad's first thread and 0 on
+// the other three.
 __device__ __forceinline__ void load_state(const Params& p, const Item& x,
                                            int row0, int t,
                                            float (&o)[16][4],
@@ -463,12 +470,17 @@ __device__ __forceinline__ void load_state(const Params& p, const Item& x,
       o[dt][2 * r + 1] = v.y;
     }
     m_run[r] = p.m[base + row];
-    if (t == 0) l_run[r] = p.l[base + row];
+    if (p.l_part_in) {
+      l_run[r] = p.l_part[(base + row) * 4 + t];
+    } else if (t == 0) {
+      l_run[r] = p.l[base + row];
+    }
   }
   __syncwarp();  // every read of m before the quad's first thread writes
 }
 
-// kCarry, not the ring's last step: the state back, unnormalized.
+// kCarry, not the ring's last step: the state back, unnormalized, with
+// every thread's share of l.
 __device__ __forceinline__ void store_state(const Params& p, const Item& x,
                                             int row0, int t,
                                             const float (&o)[16][4],
@@ -476,6 +488,7 @@ __device__ __forceinline__ void store_state(const Params& p, const Item& x,
                                             const float (&l_run)[2]) {
   float l_sum[2];
   quad_sum(l_run, l_sum);
+  const long long base = (static_cast<long long>(x.b) * p.heads + x.h) * p.lq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -485,6 +498,7 @@ __device__ __forceinline__ void store_state(const Params& p, const Item& x,
       *acc_at(p, x, row, dt * 8 + t * 2) =
           make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
     }
+    p.l_part[(base + row) * 4 + t] = l_run[r];
   }
   store_stats(p, x, row0, t, m_run, l_sum);
 }
@@ -610,8 +624,10 @@ Params make_params(void* o, void* m, void* l, const void* klens, int batch,
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
   p.acc = nullptr;
+  p.l_part = nullptr;
   p.first = 1;
   p.last = 1;
+  p.l_part_in = 0;
   p.klens = static_cast<const int*>(klens);
   p.batch = batch;
   p.heads = heads;
@@ -657,22 +673,27 @@ extern "C" int flash_fwd_stats_bf16(
   return launch<kStats>(p, q, k, v, head_dim, st, stream);
 }
 
-// The ring's step (kCarry): the state acc (fp32 [B, Lq, N, D]) and m, l
-// (fp32 [B, N, Lq]), all contiguous, read unless `first` and written back
-// in place; with `last`, o (bf16) = acc / l (1 where l = 0) and the final
-// m, l instead of the state's acc.
+// The ring's step (kCarry): the state acc (fp32 [B, Lq, N, D]), m, l
+// (fp32 [B, N, Lq]) and l's shares l_part (fp32 [B, N, Lq, 4]), all
+// contiguous, read unless `first` (l_part only with `l_part_in`; else the
+// shares start from l) and written back in place; with `last`, o (bf16) =
+// acc / l (1 where l = 0) and the final m, l instead of the state's acc
+// and l_part (null there).
 extern "C" int flash_fwd_carry_bf16(
     const void* q, const void* k, const void* v, void* o, void* acc,
-    void* m, void* l, const void* klens, int batch, int heads, int lq,
-    int lk, int head_dim, long long sqb, long long sql, long long sqn,
-    long long skb, long long skl, long long skn, long long svb,
-    long long svl, long long svn, long long sob, long long sol,
-    long long son, float qscale, int first, int last, void* stream) {
+    void* m, void* l, void* l_part, const void* klens, int batch, int heads,
+    int lq, int lk, int head_dim, long long sqb, long long sql,
+    long long sqn, long long skb, long long skl, long long skn,
+    long long svb, long long svl, long long svn, long long sob,
+    long long sol, long long son, float qscale, int first, int last,
+    int l_part_in, void* stream) {
   const long long st[9] = {sqb, sql, sqn, skb, skl, skn, svb, svl, svn};
   Params p = make_params(o, m, l, klens, batch, heads, lq, lk, sob, sol, son,
                          qscale);
   p.acc = static_cast<float*>(acc);
+  p.l_part = static_cast<float*>(l_part);
   p.first = first;
   p.last = last;
+  p.l_part_in = l_part_in;
   return launch<kCarry>(p, q, k, v, head_dim, st, stream);
 }

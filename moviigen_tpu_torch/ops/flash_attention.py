@@ -37,9 +37,10 @@ tower of i2v, D = 80, which neither package differentiates: fp32 CUDA
 tensors under autograd raise). The ring's forward (``parallel/ring.py``)
 runs ``flash_attention_carry`` once per key shard: the carried variant
 resumes the online softmax from an fp32 state (the unnormalized output,
-m and l) that it updates in place, and its last step writes the output
-and the stats; where the JAX ring merges the stats kernel's normalized
-bf16 partials, each output is rounded once. Each wrapper counts its
+m, l and each kernel thread's share of l) that it updates in place, and
+its last step writes the output and the stats; where the JAX ring merges
+the stats kernel's normalized bf16 partials, each output is rounded
+once. Each wrapper counts its
 launches on ``flash_attention`` (``launches``, ``stats_launches``,
 ``carry_launches``, ``dkv_launches``, ``dq_launches``, ``f32_launches``).
 
@@ -74,6 +75,9 @@ from .. import kernels
 LOG2E = 1.4426950408889634
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)
+# keys per tile of the bf16 forward (csrc/flash_fwd.cu:88, kRows): a key
+# shard that starts on a multiple of it is tiled as one pass tiles it
+KEY_TILE = 128
 # the fp32 forward (csrc/flash_fwd_f32.cu) takes D a multiple of 8 up to this
 F32_MAX_HEAD_DIM = 128
 COUNTERS = ("launches", "stats_launches", "carry_launches", "dkv_launches",
@@ -95,10 +99,15 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
 class CarryState(NamedTuple):
     """The online softmax carried between the ring's steps: acc, the
     unnormalized output Σ 2^(s − m)·v, fp32 [B, Lq, N, D]; m (base 2) and
-    l, fp32 [B, N, Lq]."""
+    l, fp32 [B, N, Lq]; and, from the kernel, ``l_part``, fp32 [B, N, Lq,
+    4]: each of a row's four kernel threads' share of l (they sum to l),
+    from which its next step resumes, so that a chain of steps sums l in
+    the one-shot kernel's order. The twin keeps none (None): a state
+    without shares starts them from l."""
     acc: torch.Tensor
     m: torch.Tensor
     l: torch.Tensor
+    l_part: Optional[torch.Tensor] = None
 
 
 def _key_valid(k_lens: Optional[torch.Tensor], b: int, j0: int, nk: int,
@@ -299,10 +308,10 @@ def _kernel_fn(lib_name: str, fn_name: str, argtypes):
 _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
 _FWD_STATS_ARGS = [ctypes.c_void_p] * 2 + _FWD_ARGS
-_FWD_CARRY_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+_FWD_CARRY_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
 _BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
@@ -385,9 +394,11 @@ def flash_attention_stats_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def _check_state(state: CarryState, b: int, lq: int, n: int, d: int,
                  device) -> None:
+    parts = () if state.l_part is None \
+        else (("l_part", state.l_part, (b, n, lq, 4)),)
     for name, x, shape in (("acc", state.acc, (b, lq, n, d)),
                            ("m", state.m, (b, n, lq)),
-                           ("l", state.l, (b, n, lq))):
+                           ("l", state.l, (b, n, lq)), *parts):
         if (x.shape != shape or x.dtype != torch.float32
                 or not x.is_contiguous() or x.device != device):
             raise ValueError(f"flash carry kernel: state {name} must be "
@@ -405,8 +416,9 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the ring's step (``flash_fwd.cu`` ``kCarry``): what
     ``flash_attention_carry_plain`` returns. ``state`` (None on the first
     step) is read and, unless ``last``, written back in place and
-    returned; with ``last`` the bf16 output and the final m, l (written
-    into the state's m, l)."""
+    returned, with l's shares (``CarryState.l_part``, made here for a
+    state that has none); with ``last`` the bf16 output and the final m,
+    l (written into the state's m, l)."""
     b, lq, lk, n, d, k_lens = _check_qkv(q, k, v, k_lens)
     if scale is None:
         scale = d ** -0.5
@@ -419,16 +431,20 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor,
               for _ in range(2)))
     else:
         _check_state(state, b, lq, n, d, q.device)
+    parts_in = state.l_part is not None
+    if not last and not parts_in:
+        state = state._replace(l_part=torch.empty(
+            (b, n, lq, 4), dtype=torch.float32, device=q.device))
     out = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device) \
         if last else None
     fn = _kernel_fn("flash_fwd", "flash_fwd_carry_bf16", _FWD_CARRY_ARGS)
     sto = out.stride()[:3] if last else (0, 0, 0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out),
              _ptr(state.acc), state.m.data_ptr(), state.l.data_ptr(),
-             _ptr(k_lens), b, n, lq, lk, d, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], *sto,
+             _ptr(state.l_part), _ptr(k_lens), b, n, lq, lk, d,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *sto,
              float(_qscale(scale, q.dtype)), int(first), int(last),
-             _stream(q))
+             int(parts_in), _stream(q))
     _raise_on(err, "flash carry kernel")
     kernels.count_launch(flash_attention, "carry_launches")
     return (out, state.m, state.l) if last else state
@@ -640,10 +656,13 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     new ``CarryState`` or, with ``last``, (out in q's dtype, m base 2, l)
     with m, l [B, N, Lq]. Not differentiable. CUDA tensors run the
     ``kCarry`` kernel (the state updated in place) unless
-    ``backend="plain"``, which runs the plain twin on any device."""
-    fwd = flash_attention_carry_cuda if q.is_cuda and backend == "auto" \
-        else flash_attention_carry_plain
-    return fwd(q, k, v, k_lens, state, last, scale)
+    ``backend="plain"``, which runs the plain twin on any device, over key
+    blocks of ``KEY_TILE`` as the kernel tiles them."""
+    if q.is_cuda and backend == "auto":
+        return flash_attention_carry_cuda(q, k, v, k_lens, state, last,
+                                          scale)
+    return flash_attention_carry_plain(q, k, v, k_lens, state, last, scale,
+                                       block_k=KEY_TILE)
 
 
 def reset_launch_counts() -> None:

@@ -4,11 +4,31 @@ Counterpart of ``moviigen_tpu/parallel/ring.py`` (``_local_klens``,
 ``_ring_fwd_loop``, ``ring_self_attention`` and the ring-level custom VJP
 ``_ring_flash``). Each rank
 keeps its query shard and passes its K/V shard around the ring
-(``Comm._ring_shift``: both loops run with grad off); at every step it
-runs ``ops.flash_attention.flash_attention_carry`` (the ``flash_fwd.cu``
-``kCarry`` kernel on the card, its plain twin on the CPU) on the shard it
-holds, with that shard's own valid key count. No rank ever holds the
-whole sequence's K/V.
+(``Comm._ring_shift``: both loops run with grad off) and runs
+``ops.flash_attention.flash_attention_carry`` (the ``flash_fwd.cu``
+``kCarry`` kernel on the card, its plain twin on the CPU) on each key
+shard with that shard's own valid key count.
+
+The forward walks the key shards in natural order, 0 to sp − 1, on every
+rank (``natural_order``): the shards travel one rank down per step, and a
+rank holds each shard that reaches it before its turn. Rank 0 receives
+them in order and holds none; rank 1 holds the most, sp − 1. Where the
+shards are whole tiles of the kernel (``KEY_TILE`` keys:
+``ulysses.sequence_parallel_forward`` pads ring and USP sequences to a
+multiple of ``KEY_TILE · sp``) every query row then sees the keys in the
+order and the tiles one card's kernel walks, and its running max, the m
+that P is rounded against, is one card's; the kernel's state also keeps
+each thread's share of l (``CarryState.l_part``), so l is summed as one
+card sums it, and the output is one card's kernel's, bit for bit. The
+JAX ring walks the shards in rotated order (``ring.py:87-117``), which
+changes every rank's maxima but rank 0's.
+
+The ring's shifts are synchronous on the compute stream, so a rank that
+holds shards waits for them: the last rank to receive shard 0 (rank 1)
+starts its sp kernels after sp − 2 steps of rank 0's, and a ring
+attention takes up to 2·sp − 2 kernel times where the rotated order took
+sp (shifts on a second stream, under the kernels, would remove the
+wait).
 
 The online softmax is carried through the kernel: each step resumes from
 the fp32 state the last one left (the unnormalized output, m in base 2
@@ -36,7 +56,7 @@ shard, comes home with the last rotation. A pair whose shard has
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -75,23 +95,48 @@ def ring_merge(o_acc: torch.Tensor, m_acc: torch.Tensor,
     return o / l_safe[..., None], m_new, l
 
 
+def natural_order(sp: int, me: int) -> List[List[int]]:
+    """Rank ``me``'s walk over ``sp`` key shards in natural order. The
+    shards move one rank down a step (``_ring_shift(x, axis, -1)``: after
+    s shifts rank ``me`` holds the shard that started on rank (me + s) %
+    sp); each is attended to as soon as every lower one has been, and is
+    held until then. Returns the shards attended to at each of the sp
+    steps: rank 0 one a step, rank me > 0 none until shard 0 arrives at
+    step sp − me, then shards 0 … me − 1 one a step, and shards me … sp − 1
+    at the last step."""
+    steps, held, nxt = [], set(), 0
+    for step in range(sp):
+        held.add((me + step) % sp)
+        now = []
+        while nxt in held:
+            held.remove(nxt)
+            now.append(nxt)
+            nxt += 1
+        steps.append(now)
+    return steps
+
+
 def _ring_fwd_loop(q, k, v, k_lens, comm: Comm, axis: Axis, scale,
                    backend):
-    """The rotating-K/V forward, grad off: (out in q's dtype, m base 2,
-    l), the global softmax stats [B, N, Lq] of the local query shard."""
+    """The rotating-K/V forward in natural key order, grad off: (out in
+    q's dtype, m base 2, l), the global softmax stats [B, N, Lq] of the
+    local query shard. Each step passes the shard it received on before
+    attending to what it may."""
     sp = comm.axis_size(axis)
     me = comm.axis_index(axis)
     shard = k.shape[1]
     state = None
-    k_blk, v_blk = k, v
-    for step in range(sp):
-        src = (me - step) % sp  # the rank the held shard started on
-        state = flash_attention_carry(
-            q, k_blk, v_blk, _local_klens(k_lens, src, shard), state,
-            last=step == sp - 1, scale=scale, backend=backend)
+    held = {}
+    blk = (k, v)
+    for step, todo in enumerate(natural_order(sp, me)):
+        held[(me + step) % sp] = blk
         if step < sp - 1:
-            k_blk = comm._ring_shift(k_blk, axis)
-            v_blk = comm._ring_shift(v_blk, axis)
+            blk = tuple(comm._ring_shift(x, axis, -1) for x in blk)
+        for j in todo:
+            k_j, v_j = held.pop(j)  # freed once attended to
+            state = flash_attention_carry(
+                q, k_j, v_j, _local_klens(k_lens, j, shard), state,
+                last=j == sp - 1, scale=scale, backend=backend)
     return state
 
 

@@ -10,16 +10,21 @@ the other ranks:
   the forward kernel runs over the whole sequence with N/sp heads, and a
   second all-to-all trades back (FastVideo's ``all_to_all_4D``);
 - ``ring``: the K/V shards rotate around the ring (``ring.py``), the
-  stats kernel runs on each (query shard, key shard) pair;
+  carried kernel runs on each (query shard, key shard) pair, the key
+  shards in natural order;
 - ``usp``: Ulysses over the inner ``seq`` axis inside each ring group,
   then the ring over ``ring`` (the reference's ``--ulysses_size U
   --ring_size R``).
 
 The cross-attention needs no communication: each rank's tokens query the
-whole text (and, for i2v, the 257 image tokens). RoPE tables are padded
-with identity rotations to the padded length and each rank takes its own
-rows. After the blocks the residual stream is gathered over the sequence
-axes and over ``data``, and every rank runs the head and unpatchify.
+whole text (and, for i2v, the 257 image tokens). Under ``ring`` and
+``usp`` the tokens are padded on to a multiple of ``KEY_TILE · sp``
+(``sp_seq_len``), masked through ``k_lens`` as the caller's own padding
+is, so that every key shard the ring walks is whole tiles of the kernel.
+RoPE tables are padded with identity rotations to the padded length and
+each rank takes its own rows. After the blocks the residual stream is
+gathered over the sequence axes and over ``data``, and every rank runs
+the head and unpatchify.
 
 With ``fsdp_params`` the DiT's block weights are held as shards
 (``sharding.shard_params``) and each block's are gathered just before it
@@ -51,9 +56,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models.wan_model import WanModel, unpatchify
 from ..ops.attention import attention
+from ..ops.flash_attention import KEY_TILE
 from ..ops.rope import RopeTables
 from .comm import Axis, Comm
 from .ring import ring_self_attention
@@ -77,6 +84,19 @@ def ulysses_self_attention(q: torch.Tensor, k: torch.Tensor,
     out = attention(q, k, v, k_lens=k_lens, backend=attn_backend,
                     compute_dtype=compute_dtype)
     return comm.all_to_all(out, axis, 1, 2)
+
+
+def sp_seq_len(seq_len: int, sp: int, sp_mode: str) -> int:
+    """The token count the SP forward runs at for a (padded) ``seq_len``
+    that divides by ``sp``: itself under ``ulysses``; under ``ring`` and
+    ``usp`` rounded up to a multiple of ``KEY_TILE · sp``, so that each
+    ring rank's key shard starts and ends on a tile of the kernel, where
+    one card's kernel starts and ends one (1,950-key shards of r1's 7,800
+    tokens over 4 ranks do not: they run as 2,048)."""
+    if sp_mode == "ulysses":
+        return seq_len
+    unit = KEY_TILE * sp
+    return -(-seq_len // unit) * unit
 
 
 def _padded_rope(rope: RopeTables, seq_len: int):
@@ -137,7 +157,8 @@ def sequence_parallel_forward(
     - ``usp``: on a (data, ring, seq) mesh, num_heads divisible by seq.
 
     The (padded) sequence length must divide by the sequence axes' size
-    and the batch by ``data``. ``fsdp_params``: ``model`` holds shards
+    and the batch by ``data``; ring and usp pad it further
+    (``sp_seq_len``). ``fsdp_params``: ``model`` holds shards
     over the sequence axes (``sharding.shard_params``), gathered per
     block. ``remat``, ``remat_group``: see ``WanModel.run_blocks``."""
     cfg = model.cfg
@@ -179,6 +200,10 @@ def sequence_parallel_forward(
         raise ValueError(f"batch {b} must divide by the data axis {data}")
     if k_lens is None:
         k_lens = torch.full((b,), l, dtype=torch.int32, device=xt.device)
+    padded = sp_seq_len(l, sp, sp_mode)
+    if padded > l:
+        xt = F.pad(xt, (0, 0, 0, padded - l))
+        l = padded
     cos, sin = _padded_rope(rope, l)
 
     bs, ls = b // data, l // sp

@@ -281,7 +281,8 @@ def _shards(k, v, k_lens, shards=4):
 def _clone(state):
     """A contiguous copy of a carried state (the kernel updates its own
     in place; the twin's acc is a permuted view)."""
-    return tfa.CarryState(*(x.clone(memory_format=torch.contiguous_format)
+    return tfa.CarryState(*(None if x is None else
+                            x.clone(memory_format=torch.contiguous_format)
                             for x in state))
 
 
@@ -290,8 +291,10 @@ def test_carry_kernel_matches_plain_step_by_step(cuda, b, lq, lk, k_lens):
     """Each step of the ring's carried forward from the same incoming
     state (the twin's): the kernel's state after every non-last step
     (acc, m, l) and its output and stats after the last within
-    ``REL_TOL`` of the twin's; the empty shard's step (batch entry 1)
-    passes the state through bit for bit; one launch a step."""
+    ``REL_TOL`` of the twin's, and l's shares (``l_part``, which the twin
+    does not keep) summing to l; the empty shard's step (batch entry 1)
+    passes the state through bit for bit, shares included; one launch a
+    step."""
     q, k, v = _qkv(cuda, b, lq, lk)
     kl = _klens(k_lens)
     state = None
@@ -302,8 +305,11 @@ def test_carry_kernel_matches_plain_step_by_step(cuda, b, lq, lk, k_lens):
             q, ki, vi, kli, None if state is None else _clone(state), last)
         assert tfa.flash_attention.carry_launches == before + 1
         want = tfa.flash_attention_carry_plain(q, ki, vi, kli, state, last)
-        for g, w in zip(got, want):
+        for g, w in zip(got[:3], want[:3]):
             _close(g, w)
+        if not last:
+            torch.testing.assert_close(got.l_part.sum(-1), got.l,
+                                       rtol=1e-6, atol=0)
         if k_lens is not None and i == 3:
             for g, w in zip(got[1:], state[1:]):
                 assert torch.equal(g[1], w[1])
@@ -335,6 +341,30 @@ def test_carry_kernel_chained_matches_one_shot_kernel(cuda, b, lq, lk,
         _close(g, w)
     for g, w in zip(tfa.flash_attention_carry_cuda(q, k, v, kl), want):
         _close(g, w)
+
+
+@pytest.mark.parametrize("k_lens", [None, (4096, 2200)])
+def test_carry_kernel_chained_on_key_tiles_is_the_one_shot_kernel(cuda,
+                                                                  k_lens):
+    """Chained over 4 key shards of 1,024 keys (whole 128-key tiles) in
+    natural order, the carried kernel is the one-shot stats kernel bit for
+    bit: out, m and l. Each step keeps every thread's share of l
+    (``CarryState.l_part``) and the next resumes from it, so l is summed in
+    the one-shot order. With k_lens (4096, 2200) batch entry 1's third
+    shard is partial and its fourth empty."""
+    q, k, v = _qkv(cuda, 2, 1000, 4096)
+    kl = _klens(k_lens)
+    want = tfa.flash_attention_stats_cuda(q, k, v, kl)
+    state = None
+    for i, (ki, vi, kli) in enumerate(_shards(k, v, kl)):
+        state = tfa.flash_attention_carry_cuda(q, ki, vi, kli, state,
+                                               last=i == 3)
+        if i < 3:
+            assert state.l_part.shape == (2, 8, 1000, 4)
+            torch.testing.assert_close(state.l_part.sum(-1), state.l,
+                                       rtol=1e-6, atol=0)
+    for g, w in zip(state, want):
+        assert torch.equal(g, w)
 
 
 def test_carry_kernel_refuses_what_it_does_not_take(cuda):
@@ -949,6 +979,49 @@ def test_ring_of_stats_launches_matches_one_shot_kernel(cuda):
     counts = tfa.launch_counts()
     assert (counts["carry_launches"], counts["stats_launches"]) == (16, 0)
     _close(torch.cat(outs, dim=1), want)
+
+
+@pytest.mark.parametrize("sp_mode,ring_n,seq", [("ring", 4, 1),
+                                                 ("usp", 2, 2)])
+def test_natural_order_ring_walks_the_keys_as_one_card(cuda, sp_mode,
+                                                       ring_n, seq):
+    """The ring as the SP forward runs it at r1's length: 7,800 tokens
+    padded to 8,192 (``sp_seq_len``), the pad masked through ``k_lens``,
+    over thread ranks on the card (ring 4, and USP 2 × 2 whose ring blocks
+    are 4,096 keys); every rank walks the key shards in natural order on
+    128-key boundaries, carrying l's shares. Against the one-shot kernel
+    over the 7,800 keys unpadded, as one card runs them: bit for bit (the
+    count of elements that differ is printed)."""
+    from moviigen_tpu_torch.parallel import sharding, ulysses
+    from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
+
+    tokens, sp = 7800, ring_n * seq
+    l = ulysses.sp_seq_len(tokens, sp, sp_mode)
+    assert l == 8192
+    q, k, v = _qkv(cuda, 2, l, l)
+    real = torch.full((2,), tokens, device="cuda", dtype=torch.int32)
+    want = tfa.flash_attention_cuda(*(x[:, :tokens].contiguous()
+                                      for x in (q, k, v)))
+    shards = [x.chunk(sp, dim=1) for x in (q, k, v)]
+    comms = thread_mesh(ring=ring_n, seq=seq) if sp_mode == "usp" \
+        else thread_mesh(seq=ring_n)
+
+    def rank(c):
+        fn = ulysses._self_attn_fn(c, sp_mode, "auto", torch.bfloat16)
+        i = c.axis_index(sharding.shard_axis(c))
+        return fn(*(x[i].contiguous() for x in shards), real)
+
+    tfa.reset_launch_counts()
+    with torch.no_grad():
+        got = torch.cat(run_ranks(rank, comms), dim=1)[:, :tokens]
+    torch.cuda.synchronize()
+    counts = tfa.launch_counts()
+    assert (counts["carry_launches"], counts["stats_launches"]) == (
+        sp * ring_n, 0)
+    print(f"natural-order {sp_mode} sp {sp}: max abs "
+          f"{float((got.float() - want.float()).abs().max()):.3e}, "
+          f"{int((got != want).sum())} of {got.numel()} elements differ")
+    assert torch.equal(got, want)
 
 
 def test_ulysses_thread_ranks_match_one_process_attention(cuda):

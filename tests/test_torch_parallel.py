@@ -37,7 +37,9 @@ from moviigen_tpu_torch.ops.rope import rope_3d_freqs
 from moviigen_tpu_torch.parallel import ring, sharding
 from moviigen_tpu_torch.parallel.comm import run_ranks, thread_mesh
 from moviigen_tpu_torch.parallel.mesh import make_mesh, make_pod_mesh
-from moviigen_tpu_torch.parallel.ulysses import sequence_parallel_forward
+from moviigen_tpu_torch.parallel import ulysses
+from moviigen_tpu_torch.parallel.ulysses import (sequence_parallel_forward,
+                                                 sp_seq_len)
 
 CFG = WAN_CONFIGS["t2v-tiny"].model
 JCFG = JAX_CONFIGS["t2v-tiny"].model
@@ -270,6 +272,96 @@ def test_ring_carries_the_softmax_in_bf16(std, old_ratio):
     assert new.dtype == torch.bfloat16
     assert _rel_norm(new, exact) <= 1.01 * _rel_norm(one, exact)
     assert _rel_norm(new, one) <= old_ratio * _rel_norm(old, one)
+
+
+@pytest.mark.parametrize("sp_mode,ring_n,seq", [
+    ("ring", 2, 1), ("ring", 4, 1), ("usp", 2, 1), ("usp", 2, 2)])
+def test_ring_walks_the_keys_as_one_pass(sp_mode, ring_n, seq):
+    """Ring and USP attention over thread ranks (sp = ring · seq of 2 and
+    4) in bf16, every ring shard 128 · seq keys (whole ``KEY_TILE``s),
+    batch entry 1's keys ending 28 keys before its last ring shard: a
+    masked tail, a partial shard, and a last shard wholly empty. Each
+    rank walks the key shards in natural order, so every query row is
+    one pass of the twin over all keys at ``KEY_TILE``, bit for bit."""
+    sp = ring_n * seq
+    n_tok = tfa.KEY_TILE * sp
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n_tok, 4, 32))
+                                * s).to(torch.bfloat16)
+               for s in (3.0, 3.0, 1.0))
+    k_lens = torch.tensor([n_tok, n_tok - n_tok // ring_n - 28])
+    want = tfa.flash_attention_stats_plain(q, k, v, k_lens,
+                                           block_k=tfa.KEY_TILE)[0]
+    shards = [x.chunk(sp, dim=1) for x in (q, k, v)]
+    comms = thread_mesh(ring=ring_n, seq=seq) if sp_mode == "usp" \
+        else thread_mesh(seq=ring_n)
+
+    def rank(c):
+        fn = ulysses._self_attn_fn(c, sp_mode, "auto", torch.bfloat16)
+        i = c.axis_index(sharding.shard_axis(c))
+        return fn(*(s[i] for s in shards), k_lens)
+
+    with torch.no_grad():
+        got = torch.cat(run_ranks(rank, comms), dim=1)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("sp", [1, 2, 3, 4, 8])
+def test_natural_order_holds_at_most_sp_minus_one_shards(sp):
+    """``ring.natural_order``: every rank attends to the shards 0 … sp − 1
+    in that order, each after it has arrived (rank me holds shard
+    (me + s) % sp from step s on); rank 0 one a step, holding none; no
+    rank holds more than sp − 1 shards waiting for their turn (rank 1
+    holds exactly that many before shard 0 reaches it)."""
+    most = []
+    for me in range(sp):
+        steps = ring.natural_order(sp, me)
+        assert len(steps) == sp and sum(steps, []) == list(range(sp))
+        arrived, done, held = set(), 0, 0
+        for s, todo in enumerate(steps):
+            arrived.add((me + s) % sp)
+            assert set(todo) <= arrived
+            done += len(todo)
+            held = max(held, s + 1 - done)
+        most.append(held)
+        if me == 0:
+            assert steps == [[j] for j in range(sp)]
+    assert most[0] == 0 and max(most) == max(sp - 1, 0)
+    if sp > 1:
+        assert most[1] == sp - 1
+
+
+@pytest.mark.parametrize("sp_mode,mesh,shard", [
+    ("ulysses", (1, 1, 2), 32), ("ring", (1, 1, 2), 128),
+    ("usp", (1, 2, 2), 128)])
+def test_sp_seq_len_pads_ring_shards_to_key_tiles(setup, sp_mode, mesh,
+                                                   shard):
+    """Under ring and USP the SP forward runs at a multiple of
+    ``KEY_TILE · sp`` tokens (64 tokens: 256 over 2 ranks, 512 over 2 × 2),
+    so each rank's token shard, and under USP each ring block, is whole
+    key tiles; under Ulysses the length stays the caller's. The rule
+    itself at r1 (7,800 tokens), 1280×720×81 (75,600) and 1920×832×81
+    (131,040) over 4 ranks."""
+    assert [sp_seq_len(n, 4, m) for n in (7800, 75600, 131040)
+            for m in ("ring", "usp", "ulysses")] == [
+        8192, 8192, 7800, 75776, 75776, 75600, 131072, 131072, 131040]
+    assert sp_seq_len(72, 2, "ring") == 256
+    _, model, x, t, ctx = setup
+    seen = []
+    make = ulysses._self_attn_fn
+
+    def recording(*a):
+        fn = make(*a)
+
+        def attn(q, k, v, kl):
+            seen.append((q.shape[1], int(kl[0])))
+            return fn(q, k, v, kl)
+        return attn
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ulysses, "_self_attn_fn", recording)
+        _port(model, x, t, ctx, mesh, sp_mode=sp_mode)
+    assert set(seen) == {(shard, 64)}
 
 
 @pytest.mark.parametrize("case", ["heads", "usp_mesh", "seq_len", "mode"])

@@ -2,8 +2,11 @@
 trainer's exact resume that their run T5 holds on four cards.
 
 - ``tools/sp_serve_cards.py`` over 2 ranks: the one-card references,
-  then S1 (Ulysses with the per-block gathers), S6 on its pipeline, S2
-  (the ring) and S5 (int4 and W8A8), each held to its gate;
+  S0 (one card with its keys rolled), then S1 (Ulysses with the
+  per-block gathers), S6 on its pipeline, S8 (i2v-tiny, its timed
+  request on its pipeline), S7 (a second request shape in both
+  layouts), S2 (the ring) and S5 (int4 and W8A8), each held to its
+  gate;
 - ``tools/sp_train_cards.py`` over 2 ranks, its library launch: T3 (the
   ring, and USP with a ring of 2) against the one-card step;
 - ``cli.finetune`` stopped and resumed takes the steps the run without a
@@ -37,20 +40,40 @@ def _tool(name, *args):
 
 def test_serve_tool_cpu_two_ranks(tmp_path):
     rows = {r.get("run"): r for r in _tool(
-        "sp_serve_cards.py", "--runs", "S1,S6,S2,S5", "--size", "128*128",
-        "--frame_num", 5, "--sample_steps", 2, "--s6_size", "128*128",
-        "--s6_frame_num", 5, "--s6_timed", 1, "--out_dir", tmp_path)}
-    assert {"S1", "S6", "S2", "S5_int4", "S5_w8a8"} <= set(rows)
-    for run in ("S1", "S5_int4", "S5_w8a8"):
+        "sp_serve_cards.py", "--runs", "S0,S1,S6,S8,S7,S2,S5", "--size",
+        "128*128", "--frame_num", 5, "--sample_steps", 2, "--s6_size",
+        "128*128", "--s6_frame_num", 5, "--s6_timed", 1, "--i2v_task",
+        "i2v-tiny", "--small_clip", "--s7_size", "192*128",
+        "--s7_frame_num", 5, "--s8_size", "128*128", "--s8_frame_num", 5,
+        "--out_dir", tmp_path)}
+    assert {"S0", "S1", "S6", "S8", "S8_timed", "S7_ulysses", "S7_ring",
+            "S2", "S5_int4", "S5_w8a8"} <= set(rows)
+    for run in ("S1", "S8", "S7_ulysses", "S5_int4", "S5_w8a8"):
         assert rows[run]["ok"] and rows[run]["latent_bit_equal"] \
             and rows[run]["video_bit_equal"], rows[run]
         assert rows[run]["mesh"] == {"data": 1, "seq": 2}
-    assert rows["S2"]["sp_mode"] == "ring" and rows["S2"]["ok"]
-    # the blocks reach the output (a live head): the ring's merge moves it
-    assert 0 < rows["S2"]["latent_rel_err"] <= 5e-3
-    s6 = rows["S6"]
-    assert s6["ok"] and s6["video_shape"] == [3, 5, 128, 128]
-    assert -1.0 <= s6["video_min"] < s6["video_max"] <= 1.0
+        # a live head: a zero one predicts 0 whatever the blocks do
+        assert rows[run]["pred_max_abs"] > 0
+    assert rows["S8"]["cond_same_as_one_card"] is True
+    assert rows["S8"]["task"] == "i2v-tiny"
+    for run in ("S2", "S7_ring"):
+        assert rows[run]["sp_mode"] == "ring" and rows[run]["ok"]
+        assert rows[run]["pred_max_abs"] > 0
+    # 128 tokens over 2 ranks are one key tile and an empty shard: the
+    # ring walks them as one card's twin does, bit for bit; 192 tokens
+    # are two tiles on the ring and one 512-key block of the twin on one
+    # card, so there the blocks' difference reaches the output
+    assert rows["S2"]["latent_bit_equal"]
+    assert 0 < rows["S7_ring"]["latent_rel_err"] <= 5e-3
+    assert rows["S7_ring"]["tokens"] == 192
+    # one card against itself with its keys rolled: a difference, no gate
+    assert rows["S0"]["ok"] and 0 < rows["S0"]["latent_rel_err"]
+    for run, shape in (("S6", [3, 5, 128, 128]),
+                       ("S8_timed", [3, 5, 128, 128])):
+        r = rows[run]
+        assert r["ok"] and r["video_shape"] == shape
+        assert -1.0 <= r["video_min"] < r["video_max"] <= 1.0
+    assert rows["S8_timed"]["clip_s"] > 0 and rows["S8_timed"]["encode_s"] > 0
 
 
 def test_train_tool_cpu_two_ranks(tmp_path):
