@@ -3336,10 +3336,11 @@ def _sp_ring_case(n, shards, sp, gen):
     with a ``k_lens`` that empties batch entry 1's last key shard against
     the plain twin, each step against the twin's step
     (``_check_carry``), the empty shard's step passing entry 1's state
-    through bit for bit. A middle step timed (state read and written)
-    with its plain twin, SDPA and its bound, beside what the ring once
-    ran in its place: the stats kernel and ``ring.ring_merge``'s eager
-    merge."""
+    through bit for bit. A middle step at the grid the ring launches
+    while a shift is in flight against the full grid's, bit for bit
+    (``_spare_grid``), and timed (state read and written) with its plain
+    twin, SDPA and its bound, beside what the ring once ran in its place:
+    the stats kernel and ``ring.ring_merge``'s eager merge."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -3416,6 +3417,11 @@ def _sp_ring_case(n, shards, sp, gen):
     state = fa.flash_attention_carry_cuda(q0, cut[1][0], cut[2][0],
                                           last=False)
     plain = fa.CarryState(*(x.clone() for x in state[:3]))
+    spare = _spare_grid(name, q0, k0, v0, state,
+                        fa.flash_attention_carry_cuda(
+                            q0, k0, v0, None,
+                            fa.CarryState(*(x.clone() for x in state)),
+                            False))
     part = fa.flash_attention_with_stats(q0, k0, v0)
     acc = ring.ring_merge(part[0].float(), part[1], part[2], *part)
     qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
@@ -3435,7 +3441,7 @@ def _sp_ring_case(n, shards, sp, gen):
         bound_ms=bound_ms, bound_by=bound_by,
         stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q0, k0, v0)),
         merge_ms=cuda_ms(lambda: ring.ring_merge(*acc, *part)),
-        before_redesign_ms=None)
+        before_redesign_ms=None, **spare)
     del q, k, v, cut, got, state, plain, part, acc
     torch.cuda.empty_cache()
     return row
@@ -4930,12 +4936,36 @@ def _cards_train_case(name, b, lq, lk, n, gen):
     return row
 
 
+def _spare_grid(name, q, k, v, state, full):
+    """The ring's step at the grid it launches while a shift is in flight
+    (``ring.RING_SPARE_SMS`` SMs left to NCCL) from a copy of ``state``
+    against ``full``, the same step at the full grid: every field of the
+    state bit for bit (which block walks an item must not change its
+    arithmetic); timed on ``state``. Returns the row's fields."""
+    import torch
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel.ring import RING_SPARE_SMS
+
+    got = fa.flash_attention_carry_cuda(
+        q, k, v, None, fa.CarryState(*(x.clone() for x in state)), False,
+        spare_sms=RING_SPARE_SMS)
+    if not all(torch.equal(a, b) for a, b in zip(got, full)):
+        raise RuntimeError(f"{name}: the step at sms - {RING_SPARE_SMS} "
+                           "blocks is not the full grid's bit for bit")
+    return dict(spare_sms=RING_SPARE_SMS, spare_bit_equal_full_grid=True,
+                spare_ms=cuda_ms(lambda: fa.flash_attention_carry_cuda(
+                    q, k, v, None, state, False, spare_sms=RING_SPARE_SMS)))
+
+
 def _carry_step_case(name, b, shard, n, gen):
     """A middle step of the ring's carried forward at a four-card shape:
     the state from a first step over one key shard, then the step over
     the next against its plain twin's from the same state
-    (``_check_carry``), timed beside the twin, SDPA over the pair and the
-    bound (``carry_bound``)."""
+    (``_check_carry``), and at the grid the ring launches while a shift is
+    in flight against the full grid's, bit for bit (``_spare_grid``),
+    timed beside the twin, SDPA over the pair and the bound
+    (``carry_bound``)."""
     import torch
 
     from moviigen_tpu_torch.ops import flash_attention as fa
@@ -4947,6 +4977,8 @@ def _carry_step_case(name, b, shard, n, gen):
     kept = fa.CarryState(*(x.clone() for x in state))
     got = fa.flash_attention_carry_cuda(
         q, k1, v1, None, fa.CarryState(*(x.clone() for x in kept)), False)
+    spare = _spare_grid(name, q, k1, v1,
+                        fa.CarryState(*(x.clone() for x in kept)), got)
     want = fa.flash_attention_carry_plain(q, k1, v1, None, kept, False)
     errs = _check_carry(name, got, want)
     del got, want, k0, v0
@@ -4963,7 +4995,8 @@ def _carry_step_case(name, b, shard, n, gen):
         library_ms=cuda_ms(lambda: torch.nn.functional
                            .scaled_dot_product_attention(qt, kt, vt)),
         library="SDPA forward", bound_ms=bound_ms, bound_by=bound_by,
-        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q, k1, v1)))
+        stats_ms=cuda_ms(lambda: fa.flash_attention_stats_cuda(q, k1, v1)),
+        **spare)
     del q, k1, v1, qt, kt, vt, state, kept
     torch.cuda.empty_cache()
     return row

@@ -60,7 +60,12 @@
 //   ... and the producer lands the next item's Q and first (K, V) tiles
 //   while the consumers finish and write the last one: 10-14 % faster
 //   than one block per item with 512 keys (four tiles an item), the same
-//   with many keys.
+//   with many keys. Its blocks hold every SM until the kernel ends, so a
+//   kernel on another stream (NCCL's) that becomes ready meanwhile waits
+//   for the end. The ring's step can leave `spare_sms` SMs free while a
+//   K/V shift is in flight (flash_fwd_carry_bf16): the grid is then
+//   sms - spare_sms blocks. Which block walks an item never changes the
+//   item's arithmetic, so the output is the same bits at any grid.
 // - The consumers prescale their own rows of the Q tile in place
 //   (bf16(q * c), one rounding, as the Pallas wrapper's bf16 multiply),
 //   then fence the generic-proxy writes against wgmma's async-proxy reads
@@ -580,7 +585,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <Variant V>
 int launch(const Params& p, const void* q, const void* k, const void* v,
-           int head_dim, const long long* st, void* stream) {
+           int head_dim, const long long* st, void* stream,
+           int spare_sms = 0) {
   if (head_dim != kD) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -609,7 +615,7 @@ int launch(const Params& p, const void* q, const void* k, const void* v,
                                  device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min(items, sms);
+  const int blocks = min(items, max(1, sms - max(0, spare_sms)));
   flash_fwd_kernel<V><<<blocks, kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       p, items, map_q, map_k, map_v);
@@ -678,7 +684,8 @@ extern "C" int flash_fwd_stats_bf16(
 // contiguous, read unless `first` (l_part only with `l_part_in`; else the
 // shares start from l) and written back in place; with `last`, o (bf16) =
 // acc / l (1 where l = 0) and the final m, l instead of the state's acc
-// and l_part (null there).
+// and l_part (null there). The grid leaves `spare_sms` SMs free (0: a
+// block on every SM).
 extern "C" int flash_fwd_carry_bf16(
     const void* q, const void* k, const void* v, void* o, void* acc,
     void* m, void* l, void* l_part, const void* klens, int batch, int heads,
@@ -686,7 +693,7 @@ extern "C" int flash_fwd_carry_bf16(
     long long sqn, long long skb, long long skl, long long skn,
     long long svb, long long svl, long long svn, long long sob,
     long long sol, long long son, float qscale, int first, int last,
-    int l_part_in, void* stream) {
+    int l_part_in, int spare_sms, void* stream) {
   const long long st[9] = {sqb, sql, sqn, skb, skl, skn, svb, svl, svn};
   Params p = make_params(o, m, l, klens, batch, heads, lq, lk, sob, sol, son,
                          qscale);
@@ -695,5 +702,5 @@ extern "C" int flash_fwd_carry_bf16(
   p.first = first;
   p.last = last;
   p.l_part_in = l_part_in;
-  return launch<kCarry>(p, q, k, v, head_dim, st, stream);
+  return launch<kCarry>(p, q, k, v, head_dim, st, stream, spare_sms);
 }

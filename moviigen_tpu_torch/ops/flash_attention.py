@@ -310,7 +310,7 @@ _FWD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 _FWD_STATS_ARGS = [ctypes.c_void_p] * 2 + _FWD_ARGS
 _FWD_CARRY_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
 _BWD_DKV_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -412,13 +412,16 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor,
                                k_lens: Optional[torch.Tensor] = None,
                                state: Optional[CarryState] = None,
                                last: bool = True,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None,
+                               spare_sms: int = 0):
     """Launch the ring's step (``flash_fwd.cu`` ``kCarry``): what
     ``flash_attention_carry_plain`` returns. ``state`` (None on the first
     step) is read and, unless ``last``, written back in place and
     returned, with l's shares (``CarryState.l_part``, made here for a
     state that has none); with ``last`` the bf16 output and the final m,
-    l (written into the state's m, l)."""
+    l (written into the state's m, l). The persistent grid leaves
+    ``spare_sms`` SMs free (for a collective in flight on another
+    stream); the result is the same bits at any grid."""
     b, lq, lk, n, d, k_lens = _check_qkv(q, k, v, k_lens)
     if scale is None:
         scale = d ** -0.5
@@ -444,7 +447,7 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor,
              _ptr(state.l_part), _ptr(k_lens), b, n, lq, lk, d,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *sto,
              float(_qscale(scale, q.dtype)), int(first), int(last),
-             int(parts_in), _stream(q))
+             int(parts_in), int(spare_sms), _stream(q))
     _raise_on(err, "flash carry kernel")
     kernels.count_launch(flash_attention, "carry_launches")
     return (out, state.m, state.l) if last else state
@@ -650,17 +653,18 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_lens: Optional[torch.Tensor] = None,
                           state: Optional[CarryState] = None,
                           last: bool = True, scale: Optional[float] = None,
-                          backend: str = "auto"):
+                          backend: str = "auto", spare_sms: int = 0):
     """One step of the ring's forward over the key shard it holds: the
     online softmax resumed from ``state`` (None on the first step); the
     new ``CarryState`` or, with ``last``, (out in q's dtype, m base 2, l)
     with m, l [B, N, Lq]. Not differentiable. CUDA tensors run the
-    ``kCarry`` kernel (the state updated in place) unless
-    ``backend="plain"``, which runs the plain twin on any device, over key
-    blocks of ``KEY_TILE`` as the kernel tiles them."""
+    ``kCarry`` kernel (the state updated in place; ``spare_sms``: see
+    ``flash_attention_carry_cuda``) unless ``backend="plain"``, which runs
+    the plain twin on any device, over key blocks of ``KEY_TILE`` as the
+    kernel tiles them."""
     if q.is_cuda and backend == "auto":
         return flash_attention_carry_cuda(q, k, v, k_lens, state, last,
-                                          scale)
+                                          scale, spare_sms)
     return flash_attention_carry_plain(q, k, v, k_lens, state, last, scale,
                                        block_k=KEY_TILE)
 

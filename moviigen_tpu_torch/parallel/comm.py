@@ -41,6 +41,21 @@ transposes of ``shard_map``'s in and out specs:
 
 An axis of size 1 makes every collective the identity.
 
+The ring's shift also comes in an asynchronous form, for the serving
+ring (no gradient taken), which overlaps it with its kernels:
+``ring_shift_start(x, axis, shift)`` returns a ``Pending`` whose
+``wait()`` gives the tensor. ``x`` may itself be a ``Pending`` of the
+same comm (a shard received and sent on at once): the new shift then
+waits only for that one. On CUDA, ``DistComm`` issues it from a
+communication stream of its own, over a group of its own, which waits
+only for ``x`` (an event recorded on the caller's stream at the call, or
+the ``Pending``'s own), never for the caller's later work; ``wait()``
+makes the caller's current stream wait for the result. This is the
+overlap that XLA's async collectives give the JAX ring
+(``moviigen_tpu/parallel/ring.py:12-13``). Every other collective, the
+synchronous shift too, is issued on the caller's stream over the axis'
+own group.
+
 ``axis`` is one name or a tuple of names taken jointly, the first one
 outer: ``("ring", "seq")`` is the token axis of the hybrid Ulysses × ring
 mesh. The layout is the JAX package's (``mesh.py:27-50``, the devices
@@ -74,6 +89,19 @@ import torch
 
 Axis = Union[str, Tuple[str, ...]]
 AXES = ("data", "ring", "seq")
+# The most CTAs (SMs) NCCL's kernels take for the asynchronous shift over
+# NCCL (its groups' ``ncclConfig_t.maxCTAs``): a kernel that holds every
+# SM until it ends (the ring's persistent carried forward) leaves this many
+# free while a shift is in flight (``ring.RING_SPARE_SMS``). 8 is what
+# NCCL picks on its own for a ring shift at r1's shards over 4 H100s; at
+# S7's (1.34 GB) it picks 32, which a full grid keeps out until it ends,
+# and 32 spare SMs cost the kernel a quarter of its rate. On 8 CTAs that
+# shift takes about 9 ms and runs under the kernel at 8 spare SMs
+# (tools/ring_overlap_probe.py).
+COMM_CTAS = 8
+# The axes the ring shifts over (``seq`` in ring mode, ``ring`` in USP):
+# the only ones with a group for the asynchronous shift
+ASYNC_AXES = (("ring",), ("seq",))
 
 
 def _split_to_front(x: torch.Tensor, n: int, split_dim: int) -> torch.Tensor:
@@ -95,6 +123,35 @@ def _merge_from_front(y: torch.Tensor, concat_dim: int) -> torch.Tensor:
     shape[concat_dim:concat_dim + 2] = [shape[concat_dim]
                                         * shape[concat_dim + 1]]
     return y.reshape(shape).contiguous()
+
+
+class Pending:
+    """A shift in flight. ``wait()`` gives its result: it waits for the
+    host side of the op (gloo's ``Work``s) and, where ``event`` is set
+    (the op's end on a communication stream, NCCL on the card), makes the
+    caller's current CUDA stream wait for it and marks the result as used
+    there, so the caching allocator keeps its memory until that stream is
+    done with it. A ``Pending`` made from a finished tensor
+    (``ThreadComm``) returns it."""
+
+    def __init__(self, tensor: torch.Tensor, works=(), event=None):
+        self.tensor, self.event = tensor, event
+        self._works = list(works)
+
+    def wait(self) -> torch.Tensor:
+        for work in self._works:
+            work.wait()
+        self._works = []
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+        return self.tensor
+
+
+def ready(x):
+    """A tensor, or a ``Pending``'s result, waited for."""
+    return x.wait() if isinstance(x, Pending) else x
 
 
 class Comm:
@@ -218,6 +275,13 @@ class Comm:
     def _all_to_all(self, x, axis, split_dim, concat_dim):
         raise NotImplementedError
 
+    def ring_shift_start(self, x, axis: Axis, shift: int = 1) -> Pending:
+        """Start ``_ring_shift``: x (a tensor, or a ``Pending`` of this
+        comm) to the rank ``shift`` places on along the axis (1: the
+        next, -1: the previous); the ``Pending`` gives that rank's
+        counterpart. Records nothing for autograd."""
+        raise NotImplementedError
+
     def _ring_shift(self, x, axis, shift=1):
         """x to the rank ``shift`` places on along the axis (1: the next,
         -1: the previous); that rank's counterpart comes back."""
@@ -251,15 +315,19 @@ class _Collective(torch.autograd.Function):
 class DistComm(Comm):
     """A ``Comm`` over ``torch.distributed``: one process per rank.
     ``ranks[p]`` is the global rank at mesh position p; ``groups`` maps
-    each axis key (a tuple of names) to this rank's sub-group. Build it
-    with ``parallel.mesh.make_mesh``: every process of the world must take
+    each axis key (a tuple of names) to this rank's sub-group,
+    ``async_groups`` each key of ``ASYNC_AXES`` to a second one for the
+    asynchronous shift (``build``). Build it with
+    ``parallel.mesh.make_mesh``: every process of the world must take
     part in creating the sub-groups."""
 
     def __init__(self, data: int, ring: int, seq: int, rank: int,
-                 ranks: Sequence[int], groups):
+                 ranks: Sequence[int], groups, async_groups):
         super().__init__(data, ring, seq, rank)
         self.ranks = list(ranks)
         self.groups = groups
+        self.async_groups = async_groups
+        self._streams = {}  # device index → the communication stream
 
     @classmethod
     def build(cls, data: int, ring: int, seq: int,
@@ -267,12 +335,23 @@ class DistComm(Comm):
         """Create every sub-group of a ``(data, ring, seq)`` mesh laid
         over the global ``ranks`` (a collective call of the whole world)
         and return this process' comm, or None where it is not in the
-        mesh."""
+        mesh. The axes of ``ASYNC_AXES`` get a second group for the
+        asynchronous shift, so that a shift in flight never holds up a
+        collective on the caller's stream behind it (a group's NCCL work
+        runs on one stream, in the order it was issued). Over NCCL that
+        group runs on a high-priority stream and takes at most
+        ``COMM_CTAS`` CTAs."""
         import torch.distributed as dist
 
         me = dist.get_rank()
         probe = Comm(data, ring, seq, 0)
-        groups = {}
+        groups, async_groups = {}, {}
+        opts = None
+        if dist.get_backend() == "nccl":
+            # its kernels come first where SMs free up, and stay within
+            # COMM_CTAS SMs
+            opts = dist.ProcessGroupNCCL.Options(is_high_priority_stream=True)
+            opts.config.max_ctas = COMM_CTAS
         # a group for every set of axes, named in mesh order
         keys = [key for n in range(1, len(AXES) + 1)
                 for key in itertools.combinations(AXES, n)]
@@ -286,13 +365,78 @@ class DistComm(Comm):
                 group = dist.new_group(members)
                 if me in members:
                     groups[key] = group
+                if key in ASYNC_AXES:
+                    group = dist.new_group(members, pg_options=opts)
+                    if me in members:
+                        async_groups[key] = group
         if me not in ranks:
             return None
-        return cls(data, ring, seq, list(ranks).index(me), ranks, groups)
+        return cls(data, ring, seq, list(ranks).index(me), ranks, groups,
+                   async_groups)
+
+    def _key(self, axis: Axis):
+        axes = self._axes(axis)
+        return tuple(a for a in AXES if a in axes)
 
     def _group(self, axis: Axis):
-        axes = self._axes(axis)
-        return self.groups[tuple(a for a in AXES if a in axes)]
+        return self.groups[self._key(axis)]
+
+    def _stream(self, device: torch.device) -> torch.cuda.Stream:
+        """This device's communication stream (high priority, as the
+        async groups' NCCL streams)."""
+        stream = self._streams.get(device.index)
+        if stream is None:
+            stream = self._streams[device.index] = torch.cuda.Stream(
+                device, priority=-1)
+        return stream
+
+    def ring_shift_start(self, x, axis, shift=1):
+        """``Comm.ring_shift_start`` over the axis' async group. Gloo: the
+        ``Work``s are waited on in ``Pending.wait``. CUDA: the shift runs
+        on this device's communication stream, which first waits for x
+        alone (x's ``Pending``'s event, or an event recorded now on the
+        caller's stream), then for the op (``Work.wait``), and records the
+        ``Pending``'s event. The output is allocated on that stream, and x
+        is marked as used there, so the caching allocator reuses neither
+        before the stream is done with them. Raises where the axis has no
+        async group or the stream cannot be had: there is no synchronous
+        fallback."""
+        import torch.distributed as dist
+
+        key = self._key(axis)
+        if key not in self.async_groups:
+            raise ValueError(f"no asynchronous shift over {key}: the ring "
+                             f"shifts over {ASYNC_AXES}")
+        group = self.async_groups[key]
+        members = [self.ranks[p] for p in self.group(axis)]
+        n, i = len(members), self.axis_index(axis)
+        event = x.event if isinstance(x, Pending) else None
+        t = x.tensor if event is not None else ready(x)
+
+        def issue():
+            send = t.contiguous()
+            recv = torch.empty_like(send)
+            ops = [dist.P2POp(dist.isend, send, members[(i + shift) % n],
+                              group),
+                   dist.P2POp(dist.irecv, recv, members[(i - shift) % n],
+                              group)]
+            return recv, dist.batch_isend_irecv(ops)
+
+        if not t.is_cuda:
+            return Pending(*issue())
+        if event is None:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(t.device))
+        stream = self._stream(t.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(event)
+            t.record_stream(stream)
+            recv, works = issue()
+            for work in works:
+                work.wait()  # this stream waits for NCCL's
+        done = torch.cuda.Event()
+        done.record(stream)
+        return Pending(recv, event=done)
 
     def _all_to_all(self, x, axis, split_dim, concat_dim):
         import torch.distributed as dist
@@ -358,71 +502,89 @@ class _Rendezvous:
         self.barrier = threading.Barrier(n, timeout=timeout)
         self.slots: List[Optional[torch.Tensor]] = [None] * n
 
-    def exchange(self, rank: int, x: torch.Tensor) -> List[torch.Tensor]:
-        """Every rank's ``x``, once all ranks have put theirs in."""
+    def exchange(self, rank: int, x: torch.Tensor,
+                 build: Callable[[List[torch.Tensor]], torch.Tensor]
+                 ) -> torch.Tensor:
+        """``build(every rank's x)``, once all ranks have put theirs in.
+        ``build`` reads the peers' tensors between the two barriers: no
+        rank goes on before every rank has read, so a rank that writes
+        into its own tensor after the collective (an accumulator added to
+        in place) never races a peer's read of it."""
         self.slots[rank] = x
         self.barrier.wait()
-        view = list(self.slots)
+        out = build(list(self.slots))
         self.barrier.wait()  # all have read before any writes again
-        return view
+        return out
 
 
 class ThreadComm(Comm):
     """A ``Comm`` whose ranks are threads of one process (``thread_mesh``,
     ``run_ranks``). A collective puts each rank's tensor in a shared slot
-    table, waits at a barrier for the others, and builds its result from
-    the slots with ordinary tensor ops (concatenation, slicing, a copy, a
-    sum in rank order). The raw ops run inside the autograd functions'
-    forward and backward, where nothing is recorded: a rank's graph never
-    reaches into a peer's tensors, so each rank's backward runs only its
-    own graph.
+    table, waits at a barrier for the others, builds its result from the
+    slots with ordinary tensor ops (concatenation, slicing, a copy, a sum
+    in rank order), and waits at a second barrier before it returns, so
+    every read of a peer's tensor is done before that peer goes on. The
+    asynchronous shift (``ring_shift_start``) does the exchange at once
+    and returns it finished. The raw ops run inside the
+    autograd functions' forward and backward, where nothing is recorded:
+    a rank's graph never reaches into a peer's tensors, so each rank's
+    backward runs only its own graph.
 
     On the card every thread launches on the same stream, the one that
     was current where ``run_ranks`` was called: the order in which the
     threads pass the barrier on the host is then also the order of their
     work on the device, so a rank that reads a peer's tensor after the
-    barrier reads it finished, with no event between them."""
+    barrier reads it finished, with no event between them. A second
+    stream would break that, so ``ThreadComm`` has none."""
 
     def __init__(self, data: int, ring: int, seq: int, rank: int,
                  rendezvous: _Rendezvous):
         super().__init__(data, ring, seq, rank)
         self._rv = rendezvous
 
-    def _peers(self, x: torch.Tensor, axis: Axis) -> List[torch.Tensor]:
-        slots = self._rv.exchange(self.rank, x)
-        return [slots[p] for p in self.group(axis)]
+    def _exchange(self, x: torch.Tensor, axis: Axis,
+                  build: Callable[[List[torch.Tensor]], torch.Tensor]
+                  ) -> torch.Tensor:
+        """``build`` over the axis' tensors in ``axis_index`` order."""
+        group = self.group(axis)
+        return self._rv.exchange(
+            self.rank, x, lambda slots: build([slots[p] for p in group]))
 
     def _all_to_all(self, x, axis, split_dim, concat_dim):
-        peers = self._peers(x, axis)
-        n, i = len(peers), self.axis_index(axis)
+        n, i = self.axis_size(axis), self.axis_index(axis)
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all: dim {split_dim} of "
                              f"{tuple(x.shape)} does not split into {n} "
                              "chunks")
         c = x.shape[split_dim] // n
-        return torch.cat([p.narrow(split_dim, i * c, c) for p in peers],
-                         dim=concat_dim).contiguous()
+        return self._exchange(x, axis, lambda peers: torch.cat(
+            [p.narrow(split_dim, i * c, c) for p in peers],
+            dim=concat_dim).contiguous())
 
     def _ring_shift(self, x, axis, shift=1):
-        peers = self._peers(x, axis)
-        return peers[(self.axis_index(axis) - shift) % len(peers)].clone()
+        n, i = self.axis_size(axis), self.axis_index(axis)
+        return self._exchange(x, axis,
+                              lambda peers: peers[(i - shift) % n].clone())
+
+    def ring_shift_start(self, x, axis, shift=1):
+        return Pending(self._ring_shift(ready(x), axis, shift))
 
     def _all_gather(self, x, axis, dim):
-        return torch.cat(self._peers(x, axis), dim=dim).contiguous()
+        return self._exchange(
+            x, axis, lambda peers: torch.cat(peers, dim=dim).contiguous())
 
     def _reduce_scatter(self, x, axis, dim):
-        peers = self._peers(x, axis)
-        n = len(peers)
+        n, i = self.axis_size(axis), self.axis_index(axis)
         if x.shape[dim] % n:
             raise ValueError(f"reduce_scatter: dim {dim} of "
                              f"{tuple(x.shape)} does not split over {n} "
                              "ranks")
         c = x.shape[dim] // n
-        i = self.axis_index(axis)
-        return _sum([p.narrow(dim, i * c, c) for p in peers]).contiguous()
+        return self._exchange(x, axis, lambda peers: _sum(
+            [p.narrow(dim, i * c, c) for p in peers]).contiguous())
 
     def _all_reduce(self, x, axis):
-        return _sum(self._peers(x, axis))
+        return self._exchange(x, axis, _sum)
 
 
 def _sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:

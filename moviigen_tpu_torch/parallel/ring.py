@@ -23,12 +23,22 @@ card sums it, and the output is one card's kernel's, bit for bit. The
 JAX ring walks the shards in rotated order (``ring.py:87-117``), which
 changes every rank's maxima but rank 0's.
 
-The ring's shifts are synchronous on the compute stream, so a rank that
-holds shards waits for them: the last rank to receive shard 0 (rank 1)
-starts its sp kernels after sp − 2 steps of rank 0's, and a ring
-attention takes up to 2·sp − 2 kernel times where the rotated order took
-sp (shifts on a second stream, under the kernels, would remove the
-wait).
+Where no gradient is taken (serving), the shifts overlap the kernels, as
+XLA's async collectives overlap the JAX ring's ``ppermute``s
+(``ring.py:12-13``): at each step a rank starts the shift of the shard
+it just received (``Comm.ring_shift_start``, on the card from the comm's
+own stream, waiting only for that shard) before it launches the step's
+kernels, and waits for a shard only where it first attends to it. So
+every shift waits for the shift before it, not for a kernel: rank 1
+starts its sp kernels once sp − 1 shifts have brought it shard 0, where
+synchronous shifts made it start them after sp − 2 of rank 0's kernels
+(2·sp − 2 kernel times a ring attention). The carried kernel's grid is
+persistent and holds every SM, so a kernel launched while an NCCL shift
+is in flight leaves ``RING_SPARE_SMS`` SMs to NCCL's kernels
+(``spare_sms``; the same bits at any grid). Under a training step
+(autograd records the ring) the shifts stay synchronous on the compute
+stream, forward and backward: overlapped, the 1.3B's ring step over four
+H100s took 3.04 s where it took 1.78 (PERF.md §6).
 
 The online softmax is carried through the kernel: each step resumes from
 the fp32 state the last one left (the unnormalized output, m in base 2
@@ -62,9 +72,24 @@ import torch
 
 from ..ops.flash_attention import (flash_attention_carry, flash_bwd_cuda,
                                    flash_bwd_plain)
-from .comm import Axis, Comm
+from .comm import COMM_CTAS, Axis, Comm, Pending, ready
 
 _NEG_INF = -1e30
+# SMs the carried kernel leaves to NCCL while a shift is in flight on a
+# communication stream: the CTAs a shift's kernel may take
+# (``comm.COMM_CTAS``). At S7's shards the kernel then runs 3-5 % slower
+# (sms - 8 blocks), where a shift that waits for the full grid's end
+# costs a whole kernel time of every later rank
+# (tools/ring_overlap_probe.py).
+RING_SPARE_SMS = COMM_CTAS
+
+
+def _spare_sms(blk) -> int:
+    """``RING_SPARE_SMS`` where a shift of ``blk`` runs on a
+    communication stream (NCCL on the card), else 0: thread ranks and
+    gloo return finished shifts, which need no SM."""
+    return RING_SPARE_SMS if any(isinstance(x, Pending) and x.event
+                                 is not None for x in blk) else 0
 
 
 def _local_klens(k_lens: Optional[torch.Tensor], src: int,
@@ -117,37 +142,48 @@ def natural_order(sp: int, me: int) -> List[List[int]]:
 
 
 def _ring_fwd_loop(q, k, v, k_lens, comm: Comm, axis: Axis, scale,
-                   backend):
-    """The rotating-K/V forward in natural key order, grad off: (out in
-    q's dtype, m base 2, l), the global softmax stats [B, N, Lq] of the
-    local query shard. Each step passes the shard it received on before
-    attending to what it may."""
+                   backend, overlap: bool = True):
+    """The rotating-K/V forward in natural key order: (out in q's dtype,
+    m base 2, l), the global softmax stats [B, N, Lq] of the local query
+    shard. Each step passes the shard it received on before it attends
+    to what it may: with ``overlap``, a shift started
+    (``Comm.ring_shift_start``) and waited for where its shard is first
+    attended to; else a synchronous shift."""
     sp = comm.axis_size(axis)
     me = comm.axis_index(axis)
     shard = k.shape[1]
     state = None
-    held = {}
+    held = {}  # shard → its (k, v), tensors or shifts in flight
     blk = (k, v)
     for step, todo in enumerate(natural_order(sp, me)):
         held[(me + step) % sp] = blk
-        if step < sp - 1:
+        spare = 0
+        if step < sp - 1 and overlap:
+            blk = tuple(comm.ring_shift_start(x, axis, -1) for x in blk)
+            spare = _spare_sms(blk)
+        elif step < sp - 1:
             blk = tuple(comm._ring_shift(x, axis, -1) for x in blk)
         for j in todo:
-            k_j, v_j = held.pop(j)  # freed once attended to
+            k_j, v_j = (ready(x) for x in held.pop(j))  # freed once used
             state = flash_attention_carry(
                 q, k_j, v_j, _local_klens(k_lens, j, shard), state,
-                last=j == sp - 1, scale=scale, backend=backend)
+                last=j == sp - 1, scale=scale, backend=backend,
+                spare_sms=spare)
     return state
 
 
 class RingAttention(torch.autograd.Function):
     """The ring-level custom VJP (``ring.py:127-216``) over the rank's
-    q/k/v shards (already in the compute dtype)."""
+    q/k/v shards (already in the compute dtype). The forward overlaps its
+    shifts only where no gradient is taken (serving): under a training
+    step the overlapped ring measured slower on four H100s (PERF.md §6),
+    so there, forward and backward, it shifts synchronously."""
 
     @staticmethod
     def forward(ctx, q, k, v, k_lens, comm, axis, scale, backend):
         out, m, l = _ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
-                                   backend)
+                                   backend,
+                                   overlap=not any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, out, m, l, k_lens)
         ctx.args = (comm, axis, scale, backend)
         return out

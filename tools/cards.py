@@ -14,6 +14,12 @@ rank per card, the checks every rank runs, and the card lines.
   rank of the world holds the same: the weights each rank drew from the
   seed before it cut its shards.
 - ``gather_floats`` collects a few numbers from every rank (peak GiB).
+- ``profile_summary`` reduces a traced step (``utils/profiling.trace``)
+  to what the tools' ``--profile`` records: device ms of compute and of
+  NCCL, NCCL ms under compute, exposed NCCL ms (in all, per block and by
+  NCCL kernel), the idle share and the largest compute kernels; each
+  rank writes its own (``write_profile``) and rank 0 reads them all
+  (``read_profiles``).
 - ``draw_live_heads`` makes the random DiT's head live, as a
   checkpoint's is: ``WanModel.init_weights`` zeroes it, and a zero head
   makes every prediction zero whatever the blocks compute, so that a
@@ -147,6 +153,58 @@ def same_on_every_rank(fingerprint, what: str) -> list:
         raise RuntimeError(f"{what}: the ranks drew different tensors from "
                            f"the seed (checksums {out.tolist()})")
     return fingerprint.tolist()
+
+
+def profile_summary(tr, blocks: int) -> dict:
+    """A traced step's ``comm_overlap`` (ms, rounded to the µs) with the
+    exposed NCCL time per block of the stack, and its five largest
+    compute kernels by device ms, (name, launches, ms)."""
+    from moviigen_tpu_torch.utils.profiling import comm_overlap, is_nccl
+
+    s = comm_overlap(tr.intervals, tr.window_ns)
+    out = {k: round(v, 3) if isinstance(v, float) else v
+           for k, v in s.items() if k != "nccl_by_kernel"}
+    out["idle_share"] = round(s["idle_share"], 4)
+    out["blocks"] = blocks
+    out["exposed_nccl_ms_per_block"] = round(s["exposed_nccl_ms"] / blocks,
+                                             3)
+    out["nccl_by_kernel"] = {k: [n, round(ms, 3), round(ex, 3)]
+                             for k, (n, ms, ex)
+                             in s["nccl_by_kernel"].items()}
+    top = sorted(((n, c, ms) for n, (c, ms) in tr.kernels.items()
+                  if not is_nccl(n)), key=lambda r: -r[2])[:5]
+    out["top_compute"] = [[n[:60], c, round(ms, 3)] for n, c, ms in top]
+    return out
+
+
+def warm_tracer(out_dir, device) -> None:
+    """Trace one small kernel, so that a run's traced step does not pay
+    the profiler's first start (CUPTI's set-up took a traced r1 step from
+    0.53 to 0.98 s on an H100)."""
+    import torch
+
+    from moviigen_tpu_torch.utils.profiling import trace
+
+    with trace(pathlib.Path(out_dir) / "profile" / "warm-up", device):
+        torch.ones(8, device=device).add_(1)
+
+
+def write_profile(out_dir, name: str, rank: int, summary) -> None:
+    """This rank's ``profile_summary`` of run ``name`` (None: not
+    traced), for rank 0 to read once every rank has written."""
+    import json
+
+    path = pathlib.Path(out_dir) / f"{name}.profile.rank{rank}.json"
+    path.write_text(json.dumps(summary))
+
+
+def read_profiles(out_dir, name: str, world: int) -> list:
+    """Every rank's ``write_profile`` of run ``name``, in rank order."""
+    import json
+
+    return [json.loads((pathlib.Path(out_dir)
+                        / f"{name}.profile.rank{r}.json").read_text())
+            for r in range(world)]
 
 
 def peak_gib(device) -> float:

@@ -36,7 +36,9 @@ over a mesh that ``cli.generate.build_mesh`` lays from its flags (N =
   as one B = 2 forward, as the mesh runs it; one card serves this length
   as two B = 1 forwards (``text2video.cfg_batched``), which round
   differently: that request is run too, and the records give each
-  layout's difference from it and the one card's from itself;
+  layout's difference from it and the one card's from itself
+  (``--s7_unchecked``: S7 runs with neither, and its gate is a finite
+  latent and video);
 - S8: i2v (``--i2v_task``) in S1's layout at r1's shape, its
   conditioning image drawn from ``--seed`` (``bench_torch.first_frame``);
   gate: bit-equal to one card's ``WanI2V``, and ``clip_fea`` and ``y``
@@ -63,6 +65,16 @@ is zero whatever the blocks compute); the prompt is tokenized by the hash
 tokenizer (the same ids on every rank: ``PYTHONHASHSEED`` is fixed for
 the launch).
 
+With ``--profile`` every rank traces one denoise step of each mesh run's
+request (``PROFILE_STEP``, the second) through ``utils/profiling.trace``
+(the Chrome traces under ``<out_dir>/profile/<run>/rank<r>``), and the
+run's record gains ``profile``, each rank's ``cards.profile_summary``:
+device ms of compute and of NCCL, NCCL ms under compute, exposed NCCL ms
+(in all, per block, by NCCL kernel) and the idle share. Rank 1 holds the
+most key shards in ring 4. The traced step's seconds include the
+tracer's cost while it records; opening and closing the trace fall
+between steps.
+
 Every run's record is one JSON line (seconds, errors against one card,
 launches of rank 0's request, every rank's peak GiB, the largest
 prediction of the DiT, which a zero head would make 0); the tool prints
@@ -74,6 +86,7 @@ fails; a failed run ends the launch, and no later run is tried.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -104,6 +117,7 @@ ALLOC_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
 # --small_clip: a two-block CLIP tower with the full one's output (257
 # tokens of width 1280), for the i2v DiT on the CPU
 SMALL_CLIP = dict(image_size=16, patch_size=1, mlp_ratio=1, num_layers=2)
+PROFILE_STEP = 1  # --profile traces the second denoise step
 
 
 def layouts(n: int) -> dict:
@@ -177,6 +191,8 @@ def _jobs(args, runs, names, table, world):
     jobs = []
     for name in names:
         request, quant = table[name][1:3]
+        if request == "c1" and args.s7_unchecked:
+            continue
         for variant in (("batched", "served") if _pairs_apart(args, request)
                         else ("served",)):
             if (request, quant, variant) not in jobs:
@@ -311,20 +327,65 @@ def _park_t5(pipe):
     pipe._sample = parked
 
 
-def _request(pipe, args, request):
+class _TracedSteps(list):
+    """A request's ``step_s`` list that traces denoise step
+    ``PROFILE_STEP`` (``utils/profiling.trace``): the trace opens once the
+    step before it is timed and closes once it is timed itself, so
+    neither counts in a step's seconds. The ``Trace`` goes to ``done``."""
+
+    def __init__(self, logdir, device, done):
+        super().__init__()
+        self._args, self._done = (logdir, device), done
+        self._stack = contextlib.ExitStack()
+
+    def append(self, seconds):
+        from moviigen_tpu_torch.utils.profiling import trace
+
+        super().append(seconds)
+        if len(self) == PROFILE_STEP:
+            self._done.append(self._stack.enter_context(trace(*self._args)))
+        elif len(self) == PROFILE_STEP + 1:
+            self._stack.close()
+
+
+@contextlib.contextmanager
+def _traced_step(pipe, logdir, device):
+    """Within it ``pipe``'s requests trace their step ``PROFILE_STEP``;
+    yields the list that gets each ``Trace``."""
+    done = []
+    sample = pipe._sample
+
+    def traced(*a, **cond):
+        pipe.timings["step_s"] = _TracedSteps(logdir, device, done)
+        return sample(*a, **cond)
+
+    pipe._sample = traced
+    try:
+        yield done
+    finally:
+        pipe._sample = sample
+
+
+def _request(pipe, args, request, profile_dir=None):
     """A request through ``generate``: (latent [z, F', H', W'] numpy,
     video numpy on the output rank else None, the pipeline's timings,
-    what ``_watch`` saw)."""
+    what ``_watch`` saw). With ``profile_dir``, its step
+    ``PROFILE_STEP`` is traced there and ``seen["trace"]`` is the
+    ``Trace``."""
     import torch
     from bench_torch import first_frame
 
     _, size, frames, steps = _request_args(args, request)
     image = (first_frame(size, args.seed),) if request == "i2v" else ()
     seen = _watch(pipe)
-    latent = pipe.generate(PROMPT, *image, size=size, frame_num=frames,
-                           sampling_steps=steps,
-                           guide_scale=args.guide_scale, seed=args.seed,
-                           return_latents=True)
+    with (_traced_step(pipe, profile_dir, pipe.device) if profile_dir
+          else contextlib.nullcontext([])) as traces:
+        latent = pipe.generate(PROMPT, *image, size=size, frame_num=frames,
+                               sampling_steps=steps,
+                               guide_scale=args.guide_scale, seed=args.seed,
+                               return_latents=True)
+    if traces:
+        seen["trace"] = traces[0]
     video = pipe.decode_request(torch.from_numpy(latent)[None]
                                 .to(pipe.device))
     return latent, video, dict(pipe.timings), seen
@@ -492,6 +553,11 @@ def worker(argv):
                    step_s=rolled["step_s"], ref_step_s=refs[r1]["step_s"],
                    pred_max_abs=rolled["pred_max_abs"], ok=True))
 
+    if args.profile:
+        # after the one-card references: warmed before them, the 1080p
+        # reference (CFG pair batched, 67.6 GiB) failed in its decode with
+        # CUDNN_STATUS_INTERNAL_ERROR on an H100
+        cards.warm_tracer(OUT, device)
     for name in names:
         flags, request, quant, gate = table[name]
         task = _request_args(args, request)[0]
@@ -513,30 +579,44 @@ def worker(argv):
         init_peak = cards.peak_gib(device)
         cards.reset_peak(device)
         batched = (request, quant, "batched")
-        ref = refs[ref_of.get(batched, ref_of[(request, quant, "served")])]
-        served = refs[ref_of[(request, quant, "served")]]
-        if drawn.pop("weights") != ref["weights"]:
-            raise RuntimeError(f"{name}: the mesh's weights are not the "
-                               "one-card reference's")
+        weights = drawn.pop("weights")
+        ref = served = None  # --s7_unchecked: S7 has no reference
+        if (request, quant, "served") in ref_of:
+            ref = refs[ref_of.get(batched,
+                                  ref_of[(request, quant, "served")])]
+            served = refs[ref_of[(request, quant, "served")]]
+            if weights != ref["weights"]:
+                raise RuntimeError(f"{name}: the mesh's weights are not "
+                                   "the one-card reference's")
         _reset_counts()
-        latent, video, timings, seen = _request(pipe, args, request)
+        latent, video, timings, seen = _request(
+            pipe, args, request,
+            OUT / "profile" / name / f"rank{rank}" if args.profile
+            else None)
         launches = _counts()
-        rel, max_abs = _rel(latent, ref["latent"])
-        equal = bool(np.array_equal(latent, ref["latent"]))
-        video_equal = video_rel = None
-        if video is not None:  # rank 0's
-            video_equal = bool(np.array_equal(video, ref["video"]))
-            video_rel = _rel(video, ref["video"])[0]
+        if args.profile:
+            cards.write_profile(OUT, name, rank, cards.profile_summary(
+                seen["trace"], pipe.config.model.num_layers)
+                if "trace" in seen else None)
+        rel = max_abs = equal = video_equal = video_rel = None
+        if ref is not None:
+            rel, max_abs = _rel(latent, ref["latent"])
+            equal = bool(np.array_equal(latent, ref["latent"]))
+            if video is not None:  # rank 0's
+                video_equal = bool(np.array_equal(video, ref["video"]))
+                video_rel = _rel(video, ref["video"])[0]
         cond = _cond(seen)
         cond_equal = None
         if cond is not None:
             cond_equal = cards.same_on_every_rank(
                 cond, f"{name}: clip_fea and y") == ref["cond"]
         peaks = cards.gather_floats([init_peak, cards.peak_gib(device)],
-                                    device)
+                                    device)  # every rank's profile written
         # bit-equal latents decode to the same video bits
-        ok = (_gate(gate, rel, equal)
-              and (gate != "bit-equal" or video_equal is not False)
+        ok = (_gate(gate, rel, equal) if ref is not None
+              else bool(np.isfinite(latent).all()) and (
+                  video is None or bool(np.isfinite(video).all())))
+        ok = (ok and (gate != "bit-equal" or video_equal is not False)
               and cond_equal is not False)
         s_step = _per_step(timings["step_s"])
         tokens = int(np.prod(latent.shape[1:])) // 4
@@ -548,15 +628,19 @@ def worker(argv):
             s_per_step=s_step, mfu_per_card=_mfu(pipe, tokens, s_step),
             decode_s=timings.get("decode_s"), clip_s=timings.get("clip_s"),
             encode_s=timings.get("encode_s"),
-            ref_variant=ref["variant"], ref_step_s=ref["step_s"],
-            ref_rank=ref["rank"], ref_peak_gib=ref["peak_gib"],
+            ref_variant=ref and ref["variant"],
+            ref_step_s=ref and ref["step_s"], ref_rank=ref and ref["rank"],
+            ref_peak_gib=ref and ref["peak_gib"],
             latent_rel_err=rel, latent_max_abs_err=max_abs,
             latent_bit_equal=equal, video_bit_equal=video_equal,
             video_rel_err=video_rel, cond_same_as_one_card=cond_equal,
-            pred_max_abs=float(seen["pred"]), gate=gate,
+            pred_max_abs=float(seen["pred"]),
+            gate=gate if ref is not None else "finite (--s7_unchecked)",
             ok=bool(ok), launches=launches,
             init_peak_gib=[p[0] for p in peaks],
             peak_gib=[p[1] for p in peaks])
+        if args.profile and rank == 0:
+            record["profile"] = cards.read_profiles(OUT, name, world)
         if served is not ref:  # against the request as one card serves it
             record.update(zip(("served_latent_rel_err",
                                "served_latent_max_abs_err"),
@@ -569,8 +653,8 @@ def worker(argv):
                 + timings["decode_s"]) / 60
         write(record)
         if not ok:
-            raise RuntimeError(f"{name}: gate {gate} failed: latents "
-                               f"{rel:.3e} of their norm off one card's "
+            raise RuntimeError(f"{name}: gate {record['gate']} failed: "
+                               f"latents {rel} of their norm off one card's "
                                f"(bit-equal {equal}, video {video_equal}, "
                                f"clip_fea and y {cond_equal})")
         if name == "S1" and "S6" in runs:
@@ -684,6 +768,13 @@ def _parser():
     ap.add_argument("--out_dir", default=str(OUT),
                     help="where the runs write (emptied first)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--s7_unchecked", action="store_true",
+                    help="run S7 without its one-card references (about "
+                         "three minutes of every card): its gate is then "
+                         "a finite latent and video")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace one denoise step of each mesh run on "
+                         "every rank; records gain 'profile'")
     ap.add_argument("--timeout", type=float, default=3000.0,
                     help="seconds the launch may take")
     return ap

@@ -38,6 +38,13 @@ then runs each run of ``--runs`` (N = ``--ranks``), each launch one
   last step; gate: the last step's loss, and the final checkpoint's
   weights and optimizer state, bit-equal to the run without a stop.
 
+With ``--profile``, T2 and T3 trace one more SP step of each mode after
+the timed one on every rank (``utils/profiling.trace``; Chrome traces
+under ``<out_dir>/profile``), and the record gains ``profile``, each
+rank's ``cards.profile_summary``: device ms of compute and of NCCL, NCCL
+ms under compute, exposed NCCL ms (in all, per block, by NCCL kernel)
+and the idle share.
+
 Every rank of a launch checks that the weights it drew from the seed are
 every other rank's before it cuts its shards. One JSON line per run (the
 per-step seconds and their median over steps 2 and on, losses, grad
@@ -294,6 +301,8 @@ def worker_library(argv):
             torch.cuda.synchronize(device)
 
     cards.draw_live_heads()
+    if args.profile:
+        cards.warm_tracer(out.parent, device)
     for run in args.runs.split(","):
         if run == "T2":
             task, layers = args.big_task, args.t2_layers
@@ -385,6 +394,18 @@ def worker_library(argv):
                 peak_gib=[p[0] for p in peaks],
                 one_card_peak_gib=[p[1] for p in peaks], weights=weights,
                 sharded_tensors=len(dims), ok=bool(ok))
+            if args.profile:
+                from moviigen_tpu_torch.utils.profiling import trace
+
+                with trace(out.parent / "profile"
+                           / f"{run}_{mode}_rank{rank}", device) as tr:
+                    step(batch, noise=noise, u=u)
+                cards.write_profile(out.parent, f"{run}_{mode}", rank,
+                                    cards.profile_summary(tr, cfg.num_layers))
+                dist.barrier()
+                if rank == 0:
+                    record["profile"] = cards.read_profiles(
+                        out.parent, f"{run}_{mode}", world)
             if rank == 0:
                 with open(out, "a") as fh:
                     fh.write(json.dumps(record) + "\n")
@@ -551,7 +572,8 @@ def run_library(args, runs):
     argv = ["--library", "--task", args.task, "--big_task", args.big_task,
             "--device", args.device, "--ranks", args.ranks, "--runs",
             ",".join(runs), "--latent", args.latent, "--t2_layers",
-            args.t2_layers, "--seed", args.seed]
+            args.t2_layers, "--seed", args.seed] \
+        + (["--profile"] if args.profile else [])
     cards.launch(pathlib.Path(__file__).resolve(), argv, args.ranks,
                  OUT / "library.log", args.timeout,
                  env={"SP_CARDS_OUT": str(out)})
@@ -576,6 +598,9 @@ def _parser():
     ap.add_argument("--out_dir", default=str(OUT),
                     help="where the runs write (emptied first)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="T2, T3: trace one more step of each mode on "
+                         "every rank; records gain 'profile'")
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a launch may take")
     return ap
