@@ -38,7 +38,10 @@ is in flight leaves ``RING_SPARE_SMS`` SMs to NCCL's kernels
 (``spare_sms``; the same bits at any grid). Under a training step
 (autograd records the ring) the shifts stay synchronous on the compute
 stream, forward and backward: overlapped, the 1.3B's ring step over four
-H100s took 3.04 s where it took 1.78 (PERF.md §6).
+H100s took 2.84 s where it took 1.69, its shifts at 4 CTAs on the capped
+group and each pair's K/V queued behind the fp32 dK/dV on the one shift
+stream (PERF.md §6; ``tools/ring_overlap_probe.py --train`` keeps that
+schedule to try a repair on).
 
 The online softmax is carried through the kernel: each step resumes from
 the fp32 state the last one left (the unnormalized output, m in base 2

@@ -4,9 +4,11 @@
 ranks and over gloo, the SMs the ring's kernel leaves to it, the ring's
 schedule (serving: each shift started before the kernels it must not
 wait for, each shard waited for where it is first used; training:
-synchronous shifts), thread ranks that write into their tensors right
-after a collective, and the profile's split of device time
-(``utils/profiling.comm_overlap``).
+synchronous shifts), the serving ring's output and the overlapped
+training candidate (``tools/ring_overlap_probe.py``) bit-equal to the
+training ring's, thread ranks that write into their tensors right after
+a collective, and the profile's split of device time
+(``utils/profiling.comm_overlap``, ``tools/cards.py``).
 
 This file imports neither JAX nor the JAX package: the ring is held to
 JAX in ``test_torch_parallel.py`` and ``test_torch_sp_training.py``,
@@ -24,6 +26,8 @@ from moviigen_tpu_torch.parallel.comm import (Comm, Pending, run_ranks,
 from moviigen_tpu_torch.parallel.mesh import make_mesh
 from moviigen_tpu_torch.utils.profiling import comm_overlap
 from test_torch_parallel_dist import _free_port, _spawn
+from tools import cards
+from tools.ring_overlap_probe import OverlappedRing
 
 _CARRY, _BWD = ring.flash_attention_carry, ring.flash_bwd_plain
 
@@ -54,6 +58,39 @@ def _check_async_forms(comm):
     return True
 
 
+def _ring_results(fn, comm, sp, me, k_lens=None):
+    """out, dq, dk, dv of one ring forward and backward (``fn``: an
+    autograd function of ``RingAttention``'s signature) over rank
+    ``me``'s shards of a 4 × 128-key sequence (bf16, the plain twins), a
+    fixed output gradient; and the forward's out with no gradient taken
+    (serving)."""
+    gen = torch.Generator().manual_seed(me)
+    q, k, v, g = (torch.randn(1, 128 * 4 // sp, 2, 32, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    args = (k_lens, comm, "seq", 32 ** -0.5, "auto")
+    with torch.no_grad():
+        served = fn.apply(q, k, v, *args)
+    x = [t.requires_grad_(True) for t in (q, k, v)]
+    out = fn.apply(*x, *args)
+    out.backward(g)
+    return [out.detach()] + [t.grad for t in x] + [served]
+
+
+def _ring_bit_equal(comm):
+    """On ``comm``'s 'seq' axis the training ring's out, dq, dk, dv and
+    the serving ring's out (its shifts overlapped) are the overlapped
+    training candidate's (``ring_overlap_probe.OverlappedRing``) bit for
+    bit, and the serving out is the training out: with every key valid,
+    and with keys past 300 masked (the last 128-key shard empty)."""
+    sp, me = comm.axis_size("seq"), comm.axis_index("seq")
+    for k_lens in (None, torch.tensor([300], dtype=torch.int32)):
+        got = _ring_results(OverlappedRing, comm, sp, me, k_lens)
+        want = _ring_results(ring.RingAttention, comm, sp, me, k_lens)
+        for a, b in zip(got, want + [want[0]]):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return True
+
+
 def test_async_shift_equals_sync_on_thread_ranks():
     assert all(run_ranks(_check_async_forms, thread_mesh(seq=4)))
 
@@ -68,15 +105,25 @@ def _gloo_worker(rank, world, port):
         # only the ring's axes have a group for the asynchronous shift
         with pytest.raises(ValueError, match="no asynchronous shift"):
             comm.ring_shift_start(_rank_tensor(rank), ("data", "seq"))
+        _ring_bit_equal(comm)
     finally:
         dist.destroy_process_group()
 
 
 def test_async_shift_equals_sync_over_gloo():
-    """The same checks on ``DistComm`` over gloo, 4 ranks, and a shift
-    over axes with no async group raises (a worker's failed check fails
-    the spawn)."""
+    """The same checks on ``DistComm`` over gloo, 4 ranks, a shift over
+    axes with no async group raises, and the ring's results are the same
+    bits in every schedule (``_ring_bit_equal``; a worker's failed check
+    fails the spawn)."""
     _spawn(_gloo_worker, 4, 4, _free_port())
+
+
+def test_overlapped_ring_equals_synchronous_on_thread_ranks():
+    """The overlapped training candidate's out, dq, dk, dv (forward and
+    backward under autograd) and the serving ring's out against the
+    training ring's, whose shifts are synchronous, on 4 thread ranks: the
+    same bits."""
+    assert all(run_ranks(_ring_bit_equal, thread_mesh(seq=4)))
 
 
 def test_spare_sms_only_while_a_shift_runs_on_a_stream():
@@ -260,6 +307,58 @@ def test_comm_overlap_splits_nccl_time():
     assert s["exposed_nccl_ms"] == 14
     assert s["idle_share"] == pytest.approx(1 - 35 / 50)
     assert s["nccl_by_kernel"] == {"ncclDevKernel_SendRecv": (2, 25.0, 14.0)}
+
+
+def _chrome(path, kernels, base=1_000_000_000):
+    """A Chrome trace of device kernels (name, start ms, end ms, stream,
+    grid), times relative to ``base`` ns as the profiler writes them."""
+    import json
+
+    events = [{"ph": "X", "cat": "kernel", "name": n, "ts": t0 * 1000.0,
+               "dur": (t1 - t0) * 1000.0,
+               "args": {"stream": st, "grid": grid}}
+              for n, t0, t1, st, grid in kernels]
+    path.write_text(json.dumps({"baseTimeNanoseconds": base,
+                                "traceEvents": events}))
+    return path
+
+
+def test_nccl_ops_lined_up_across_ranks(tmp_path):
+    """``cards.nccl_ops`` reads a rank's NCCL kernels by group (the
+    stream ``comm_streams`` named) and op, with the compute kernel before
+    each; ``nccl_by_group`` sums them; ``nccl_waits`` lines the k-th op
+    of a group up across its ranks: rank 0's all-reduce waits 1.5 ms for
+    rank 1, which arrives last after its GEMM; the shifts' group, with
+    rank 0 last, waits 2 ms on rank 1. Two processes write times from
+    bases of their own, on one clock."""
+    ar = "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgs)"
+    sr = "ncclDevKernel_SendRecv(ncclDevKernelArgs)"
+    g1, g8 = [16, 1, 1], [8, 1, 1]
+    rank0 = _chrome(tmp_path / "r0.json", [
+        ("flash", 0.0, 9.0, 7, g1), (ar, 10.0, 12.0, 13, g1),
+        (sr, 20.0, 21.0, 21, g8)])
+    rank1 = _chrome(tmp_path / "r1.json", [
+        ("gemm", 6.0, 12.4, 7, g1), (ar, 12.5, 13.0, 13, g1),
+        (sr, 19.0, 22.0, 21, g8)], base=1_000_000_000 - 1_000_000)
+    streams = {"13": "sync:seq", "21": "shift:seq"}
+    ops = [cards.nccl_ops(p, streams) for p in (rank0, rank1)]
+    assert [op[:2] for op in ops[0]] == [["sync:seq", "all-reduce"],
+                                         ["shift:seq", "send/receive"]]
+    assert ops[1][0][6] == "gemm" and ops[0][0][6] == "flash"
+    by = cards.nccl_by_group(ops[0])
+    assert by == {"sync:seq all-reduce": [1, 2.0, 2.0, 16],
+                  "shift:seq send/receive": [1, 1.0, 1.0, 8]}
+    # rank 1 writes its times from a base 1 ms earlier
+    members = [{"sync:seq": [0, 1], "shift:seq": [0, 1]}] * 2
+    waits = cards.nccl_waits(ops, members)
+    ar_w = waits["sync:seq all-reduce"]
+    assert ar_w["ops"] == 1 and ar_w["last"] == [0, 1]
+    assert ar_w["wait_ms"] == [1.5, 0.0]
+    assert ar_w["last_rank_ran_before"] == [["gemm", 1.5]]
+    sr_w = waits["shift:seq send/receive"]
+    assert sr_w["last"] == [1, 0] and sr_w["wait_ms"] == [0.0, 2.0]
+    assert sr_w["after_ms"] == [1.0, 1.0]
+    assert sr_w["last_rank_ran_before"] == [["flash", 2.0]]
 
 
 def test_profile_traces_the_second_step(tmp_path):

@@ -26,6 +26,19 @@ barrier, median of ``--reps``:
   largest spare: ``cards.profile_summary`` and the grid NCCL's kernels
   launched with (from the Chrome trace).
 
+With ``--train`` it runs the ring as a training step runs it instead:
+for each shape of ``--train_shapes`` (default T3's ring shard, 1 x
+8,192 x 12) one ring forward and backward under autograd, in the
+program's schedule (``synchronous``: ``RingAttention``, its shifts on the
+compute stream) and in a candidate (``overlapped``: ``OverlappedRing``,
+each shift started before the kernels it must not wait for, the
+accumulators' after their add, as XLA orders the JAX ring's; on four
+H100s it slowed the 1.3B's step, so the program does not run it). Out,
+dq, dk and dv must be the same bits in both, or the probe fails; each is
+timed as above and traced once, with NCCL's kernels split by group and
+op and lined up across the ranks (``cards.comm_streams``,
+``cards.nccl_waits``).
+
 Prints one JSON line per case (every rank's ms), then the cards' names
 and power limits. Fails on a rank's error or a grid that changes a bit.
 """
@@ -41,9 +54,61 @@ import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+import torch  # noqa: E402
+
+from moviigen_tpu_torch.parallel import ring  # noqa: E402
+from moviigen_tpu_torch.parallel.comm import ready  # noqa: E402
 from tools import cards  # noqa: E402
 
 OUT = cards.ROOT / "_smoke_out" / "ring_overlap"
+
+
+class OverlappedRing(torch.autograd.Function):
+    """``ring.RingAttention`` with its shifts overlapped under autograd
+    too: the forward starts each shift before its step's kernels (the
+    serving schedule), and the backward starts step s + 1's K/V shift
+    before step s's pair and each accumulator's shift once the pair's
+    share is added to it (``moviigen_tpu/parallel/ring.py:196-210``).
+    The same sums in the same order: out, dq, dk and dv are
+    ``RingAttention``'s bit for bit."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_lens, comm, axis, scale, backend):
+        out, m, l = ring._ring_fwd_loop(q, k, v, k_lens, comm, axis, scale,
+                                        backend, overlap=True)
+        ctx.save_for_backward(q, k, v, out, m, l, k_lens)
+        ctx.args = (comm, axis, scale, backend)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, l, k_lens = ctx.saved_tensors
+        comm, axis, scale, backend = ctx.args
+        sp, me = comm.axis_size(axis), comm.axis_index(axis)
+        shard = k.shape[1]
+        do = g.to(q.dtype)
+        bwd = ring.flash_bwd_cuda if q.is_cuda and backend == "auto" \
+            else ring.flash_bwd_plain
+        dq, dk, dv = (torch.zeros(t.shape, dtype=torch.float32,
+                                  device=q.device) for t in (q, k, v))
+        blk = (k, v)  # the held K/V: tensors or shifts in flight
+        for step in range(sp):
+            src = (me - step) % sp
+            held = blk
+            if step < sp - 1:  # the next pair's K/V, under this pair
+                blk = tuple(comm.ring_shift_start(x, axis) for x in blk)
+            k_blk, v_blk = (ready(x) for x in held)
+            dq_p, dk_p, dv_p = bwd(q, k_blk, v_blk,
+                                   ring._local_klens(k_lens, src, shard),
+                                   out, m, l, do, scale)
+            dq += dq_p.float()
+            dk, dv = ready(dk), ready(dv)
+            dk += dk_p.float()
+            dv += dv_p.float()
+            dk = comm.ring_shift_start(dk, axis)
+            dv = comm.ring_shift_start(dv, axis)
+        return (dq.to(q.dtype), ready(dk).to(k.dtype),
+                ready(dv).to(v.dtype), None, None, None, None, None)
 
 
 def _parser():
@@ -54,12 +119,16 @@ def _parser():
     ap.add_argument("--spare", default="4,8,16",
                     help="SMs the kernel leaves free, comma-separated")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--train", action="store_true",
+                    help="the training ring, forward and backward, in "
+                         "both schedules")
+    ap.add_argument("--train_shapes", default="1x8192x12",
+                    help="B x L x N of a ring shard, comma-separated")
     ap.add_argument("--timeout", type=float, default=600.0)
     return ap
 
 
 def worker(argv):
-    import torch
     import torch.distributed as dist
 
     from moviigen_tpu_torch.ops.flash_attention import (CarryState,
@@ -100,6 +169,11 @@ def worker(argv):
         mine = statistics.median(out)
         return [row[0] for row in cards.gather_floats([mine], device)]
 
+    if args.train:
+        _train_mode(args, comm, rank, world, device, emit)
+        dist.barrier()
+        dist.destroy_process_group()
+        return
     for shape in args.shapes.split(","):
         b, l, n = (int(x) for x in shape.split("x"))
         gen = torch.Generator(device=device).manual_seed(rank)
@@ -173,6 +247,73 @@ def worker(argv):
         torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _train_mode(args, comm, rank, world, device, emit):
+    """``--train``: the ring's forward and backward under autograd in
+    both schedules, bit for bit, timed and traced."""
+    import torch.distributed as dist
+
+    from moviigen_tpu_torch.utils.profiling import trace
+
+    schedules = {"overlapped": OverlappedRing,
+                 "synchronous": ring.RingAttention}
+    streams = cards.comm_streams(comm, device, OUT, rank)
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    for shape in args.train_shapes.split(","):
+        b, l, n = (int(x) for x in shape.split("x"))
+        gen = torch.Generator(device=device).manual_seed(rank)
+        q, k, v, g = (torch.randn((b, l, n, 128), generator=gen,
+                                  device=device).to(torch.bfloat16)
+                      for _ in range(4))
+
+        def step(fn):
+            x = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = fn.apply(*x, None, comm, "seq", 128 ** -0.5, "auto")
+            out.backward(g)
+            return [out.detach()] + [t.grad for t in x]
+
+        got = {name: step(fn) for name, fn in schedules.items()}
+        same = all(torch.equal(a, b_) for a, b_ in
+                   zip(got["overlapped"], got["synchronous"]))
+        sync()
+        equal = [row[0] for row in cards.gather_floats([float(same)],
+                                                       device)]
+        emit(dict(case="train_bit_equal", shape=shape, ranks=equal))
+        if not all(equal):
+            raise RuntimeError(f"{shape}: the overlapped ring's out, dq, "
+                               "dk, dv are not the synchronous ring's")
+        del got
+        for name, fn in schedules.items():
+            times = []
+            for _ in range(args.reps):
+                sync()
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                step(fn)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            emit(dict(case="train", shape=shape, schedule=name, ms=[
+                row[0] for row in cards.gather_floats(
+                    [statistics.median(times)], device)]))
+            sync()
+            dist.barrier()
+            with trace(OUT / f"train_{shape}_{name}_rank{rank}",
+                       device) as tr:
+                step(fn)
+            cards.write_profile(OUT, f"train_{shape}_{name}", rank,
+                                cards.profile_summary(tr, 1, streams))
+            dist.barrier()
+            if rank == 0:
+                profiles = cards.read_profiles(OUT, f"train_{shape}_{name}",
+                                               world)
+                emit(dict(case="train_traced", shape=shape, schedule=name,
+                          nccl_waits=cards.waits_of(profiles),
+                          profile=profiles))
 
 
 def main():

@@ -88,7 +88,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
-import gc
 import json
 import pathlib
 import statistics
@@ -209,33 +208,11 @@ def _jobs(args, runs, names, table, world):
 # ------------------------------------------------------------- the worker
 
 
-def _free(device):
-    import torch
-
-    gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-
-
 def _sync(device):
     import torch
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _counts():
-    from moviigen_tpu_torch.ops import flash_attention, int8_gemm
-
-    return {**flash_attention.launch_counts(), **int8_gemm.launch_counts()}
-
-
-def _reset_counts():
-    from moviigen_tpu_torch.ops import flash_attention, int8_gemm
-
-    flash_attention.reset_launch_counts()
-    int8_gemm.reset_launch_counts()
 
 
 def _size(text):
@@ -452,7 +429,7 @@ def _references(args, jobs, rank, world, device):
             pred_max_abs=float(seen["pred"]), init_peak_gib=init_peak,
             peak_gib=cards.peak_gib(device))))
         del pipe, seen
-        _free(device)
+        cards.free(device)
 
 
 def _gate(gate, rel, equal):
@@ -464,6 +441,7 @@ def worker(argv):
     args = _parser().parse_args(argv)
     OUT = pathlib.Path(args.out_dir)
     import numpy as np
+    import torch
     import torch.distributed as dist
 
     from moviigen_tpu_torch.cli import generate
@@ -571,6 +549,9 @@ def worker(argv):
         cards.reset_peak(device)
         t0 = time.perf_counter()
         mesh, sp_mode = generate.build_mesh(gargs)
+        streams = cards.comm_streams(mesh, device, OUT, rank) \
+            if args.profile and mesh is not None \
+            and torch.device(device).type == "cuda" else None
         pipe = _pipeline(task, device, quant,
                          residual_dtype=gargs.residual_dtype, mesh=mesh,
                          sp_mode=sp_mode)
@@ -588,15 +569,15 @@ def worker(argv):
             if weights != ref["weights"]:
                 raise RuntimeError(f"{name}: the mesh's weights are not "
                                    "the one-card reference's")
-        _reset_counts()
+        cards.reset_launch_counts()
         latent, video, timings, seen = _request(
             pipe, args, request,
             OUT / "profile" / name / f"rank{rank}" if args.profile
             else None)
-        launches = _counts()
+        launches = cards.launch_counts()
         if args.profile:
             cards.write_profile(OUT, name, rank, cards.profile_summary(
-                seen["trace"], pipe.config.model.num_layers)
+                seen["trace"], pipe.config.model.num_layers, streams)
                 if "trace" in seen else None)
         rel = max_abs = equal = video_equal = video_rel = None
         if ref is not None:
@@ -641,6 +622,8 @@ def worker(argv):
             peak_gib=[p[1] for p in peaks])
         if args.profile and rank == 0:
             record["profile"] = cards.read_profiles(OUT, name, world)
+            if all(record["profile"]):
+                record["nccl_waits"] = cards.waits_of(record["profile"])
         if served is not ref:  # against the request as one card serves it
             record.update(zip(("served_latent_rel_err",
                                "served_latent_max_abs_err"),
@@ -664,7 +647,7 @@ def worker(argv):
             _timed(pipe, args, init_s, device, write, "S8_timed",
                    _size(args.s8_size), args.s8_frame_num)
         del pipe, mesh, seen
-        _free(device)
+        cards.free(device)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -695,14 +678,14 @@ def _timed(pipe, args, init_s, device, write, run, size, frames):
     steps = args.s6_warmup + args.s6_timed
     _, tokens, _ = compute_target_shape_and_seq_len(pipe.config, size,
                                                     frames)
-    _free(device)
+    cards.free(device)
     cards.reset_peak(device)
-    _reset_counts()
+    cards.reset_launch_counts()
     seen = _watch(pipe)
     image = (first_frame(size, args.seed),) if i2v else ()
     video = pipe.generate(PROMPT, *image, size=size, frame_num=frames,
                           sampling_steps=steps, seed=args.seed)
-    launches = _counts()
+    launches = cards.launch_counts()
     t = dict(pipe.timings)
     peaks = cards.gather_floats([cards.peak_gib(device)], device)
     s_step = statistics.median(t["step_s"][args.s6_warmup:])

@@ -24,7 +24,8 @@ then runs each run of ``--runs`` (N = ``--ranks``), each launch one
   checkpoint's size first and reported;
 - T2: one step of T1's model at library level (``make_train_step`` with
   a mesh), depth cut to ``--t2_layers`` blocks, Ulysses sp N, against
-  the same step on one card (each rank runs it on its own card); gate:
+  the same step on one card (each rank runs it on its own card; after a
+  warm-up, ``--timed_steps`` SP steps, their median kept); gate:
   loss bit-equal, every gradient within 2e-2 of its norm (a linear's
   weight and bias as one tensor);
 - T3: the same for ``--task`` at full depth, ring sp N, then USP N/2 × 2;
@@ -42,8 +43,13 @@ With ``--profile``, T2 and T3 trace one more SP step of each mode after
 the timed one on every rank (``utils/profiling.trace``; Chrome traces
 under ``<out_dir>/profile``), and the record gains ``profile``, each
 rank's ``cards.profile_summary``: device ms of compute and of NCCL, NCCL
-ms under compute, exposed NCCL ms (in all, per block, by NCCL kernel)
-and the idle share.
+ms under compute, exposed NCCL ms (in all, per block, by NCCL kernel),
+the idle share, and NCCL's kernels by group (``cards.comm_streams``: the
+axis' own group on the caller's stream, the shifts') and op; and ``nccl_waits``, every op lined up across its
+group's ranks (``cards.nccl_waits``): each rank's wait for the last one
+to arrive, and what that one ran before it. Every record holds each
+rank's caching-allocator counters over the timed step
+(``cards.allocator_stats``: retries, ``cudaMalloc`` calls).
 
 Every rank of a launch checks that the weights it drew from the seed are
 every other rank's before it cuts its shards. One JSON line per run (the
@@ -63,6 +69,7 @@ import shutil
 import statistics
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -165,7 +172,7 @@ def worker_finetune(argv):
     mine.write_text(json.dumps(progress))
     if rank == 0:
         path = pathlib.Path(record["checkpoint"])
-        counts = _counts()
+        counts = cards.launch_counts()
         out.write_text(json.dumps(dict(
             step_s=record["step_s"], loss=record["loss"],
             grad_norm=record["grad_norm"], main_s=main_s,
@@ -179,12 +186,6 @@ def worker_finetune(argv):
     del record
     if distributed.is_initialized():
         torch.distributed.destroy_process_group()
-
-
-def _counts():
-    from moviigen_tpu_torch.ops import flash_attention
-
-    return flash_attention.launch_counts()
 
 
 # ---------------------------------------- worker: the SP step, library
@@ -271,6 +272,101 @@ def _expected_launches(mode, ring, sp, layers):
     return {k: v for k, v in counts.items() if v}
 
 
+def _library_run(args, ref, mode, ring, seq, comm, streams, device, out):
+    """One SP step of ``mode``: a warm-up, the timed steps (launches,
+    allocator counters, peaks), the gradients against the one-card
+    step's (``ref``: the run's model, inputs and one-card results), and
+    with ``--profile`` one more step traced; rank 0 appends the record.
+    Raises when a gate fails."""
+    import torch
+    import torch.distributed as dist
+
+    from moviigen_tpu_torch.ops import flash_attention as fa
+    from moviigen_tpu_torch.parallel import sharding
+    from moviigen_tpu_torch.training import make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    run, cfg, batch, noise, u = ref.run, ref.cfg, ref.batch, ref.noise, ref.u
+    axis = sharding.shard_axis(comm)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    m = sharding.shard_params(ref.model, sharding.dit_param_specs(ref.model),
+                              comm, axis)
+    cap = _GradsOf(dict(m.named_parameters()), comm)
+    step = make_train_step(m, ref.tc, ref.rope, cap, comm=comm, sp_mode=mode)
+    step(batch, noise=noise, u=u)  # warm-up
+    sync()
+    cards.reset_peak(device)
+    fa.reset_launch_counts()
+    alloc0 = cards.allocator_stats(device)
+    step_s = []
+    for n in range(args.timed_steps):
+        t0 = time.perf_counter()
+        metrics = step(batch, noise=noise, u=u)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        if n == 0:  # the first timed step's launches and allocations
+            alloc = {k: v - alloc0[k] if k != "reserved_gib" else v
+                     for k, v in cards.allocator_stats(device).items()}
+            counts = {k: v for k, v in fa.launch_counts().items() if v}
+    secs = statistics.median(step_s)
+    expected = _expected_launches(mode, ring, ring * seq,
+                                  cfg.num_layers) if cuda else {}
+    dims = sharding.sharded_tensors(m)
+    errs, alone = _grad_errors(comm, cap.grads, ref.want, dims, axis)
+    peaks = cards.gather_floats([cards.peak_gib(device), ref.one_peak],
+                                device)
+    loss, one_loss = float(metrics["loss"]), float(ref.want_m["loss"])
+    loss_rel = abs(loss - one_loss) / abs(one_loss)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    loss_ok = loss == one_loss if ref.loss_gate == "bit-equal" \
+        else loss_rel <= ref.loss_gate
+    # the launches are the kernels' (the CPU runs the plain twins)
+    ok = loss_ok and worst[0][1] <= GRAD_REL_TOL \
+        and (not cuda or counts == expected)
+    record = dict(
+        run=run, task=ref.task, layers=cfg.num_layers, sp_mode=mode,
+        mesh=dict(comm.shape),
+        tokens=int(np.prod(ref.grid)), s=secs, step_s=step_s,
+        one_card_s=ref.one_s,
+        loss=loss, one_card_loss=one_loss, loss_rel_err=loss_rel,
+        loss_bit_equal=loss == one_loss, loss_gate=ref.loss_gate,
+        grad_norm=float(metrics["grad_norm"]),
+        one_card_grad_norm=float(ref.want_m["grad_norm"]),
+        tensors=len(errs), max_grad_rel_err=worst[0][1],
+        worst=dict(worst[:4]),
+        median_grad_rel_err=statistics.median(errs.values()),
+        worst_alone=dict(sorted(alone.items(), key=lambda kv: -kv[1])[:4]),
+        grad_gate=GRAD_REL_TOL, launches=counts, expected_launches=expected,
+        peak_gib=[p[0] for p in peaks],
+        one_card_peak_gib=[p[1] for p in peaks], weights=ref.weights,
+        allocator=[dict(zip(alloc, row)) for row in cards.gather_floats(
+            list(alloc.values()), device)] if alloc else [],
+        sharded_tensors=len(dims), ok=bool(ok))
+    if args.profile:
+        from moviigen_tpu_torch.utils.profiling import trace
+
+        name = f"{run}_{mode}"
+        with trace(out.parent / "profile" / f"{name}_rank{rank}",
+                   device) as tr:
+            step(batch, noise=noise, u=u)
+        cards.write_profile(out.parent, name, rank, cards.profile_summary(
+            tr, cfg.num_layers, streams))
+        dist.barrier()
+        if rank == 0:
+            record["profile"] = cards.read_profiles(out.parent, name, world)
+            record["nccl_waits"] = cards.waits_of(record["profile"])
+    if rank == 0:
+        with open(out, "a") as fh:
+            fh.write(json.dumps(record) + "\n")
+    if not ok:
+        raise RuntimeError(f"{run} {mode}: gate failed: {record}")
+
+
 def worker_library(argv):
     """T2 and T3: for each model, the one-card step on this rank's card,
     then the SP step over a mesh of the whole world per mode, the
@@ -280,9 +376,8 @@ def worker_library(argv):
 
     from moviigen_tpu_torch.configs import WAN_CONFIGS
     from moviigen_tpu_torch.models.wan_model import WanModel
-    from moviigen_tpu_torch.ops import flash_attention as fa
     from moviigen_tpu_torch.ops.rope import rope_3d_freqs
-    from moviigen_tpu_torch.parallel import distributed, sharding
+    from moviigen_tpu_torch.parallel import distributed
     from moviigen_tpu_torch.parallel.mesh import make_mesh
     from moviigen_tpu_torch.training import TrainConfig, make_train_step
 
@@ -347,86 +442,22 @@ def worker_library(argv):
         if zero:
             raise RuntimeError(f"{run}: all-zero one-card gradients "
                                f"{zero[:4]}")
+        ref = types.SimpleNamespace(
+            run=run, task=task, cfg=cfg, model=model, rope=rope,
+            batch=batch, noise=noise, u=u, tc=tc, one_s=one_s,
+            one_peak=one_peak, want=want, want_m=want_m,
+            loss_gate=loss_gate, weights=weights, grid=grid)
         for mode, ring, seq in modes:
-            comm = make_mesh(data=1, ring=ring, seq=seq)
-            axis = sharding.shard_axis(comm)
-            m = sharding.shard_params(model, sharding.dit_param_specs(model),
-                                      comm, axis)
-            cap = _GradsOf(dict(m.named_parameters()), comm)
-            step = make_train_step(m, tc, rope, cap, comm=comm, sp_mode=mode)
-            step(batch, noise=noise, u=u)  # warm-up
-            sync()
-            cards.reset_peak(device)
-            fa.reset_launch_counts()
-            t0 = time.perf_counter()
-            metrics = step(batch, noise=noise, u=u)
-            sync()
-            secs = time.perf_counter() - t0
-            counts = {k: v for k, v in fa.launch_counts().items() if v}
-            expected = _expected_launches(mode, ring, ring * seq,
-                                          cfg.num_layers) if cuda else {}
-            dims = sharding.sharded_tensors(m)
-            errs, alone = _grad_errors(comm, cap.grads, want, dims, axis)
-            peaks = cards.gather_floats([cards.peak_gib(device), one_peak],
-                                        device)
-            loss, one_loss = float(metrics["loss"]), float(want_m["loss"])
-            loss_rel = abs(loss - one_loss) / abs(one_loss)
-            worst = sorted(errs.items(), key=lambda kv: -kv[1])
-            loss_ok = loss == one_loss if loss_gate == "bit-equal" \
-                else loss_rel <= loss_gate
-            # the launches are the kernels' (the CPU runs the plain twins)
-            ok = loss_ok and worst[0][1] <= GRAD_REL_TOL \
-                and (not cuda or counts == expected)
-            record = dict(
-                run=run, task=task, layers=cfg.num_layers, sp_mode=mode,
-                mesh=dict(comm.shape), tokens=int(np.prod(grid)), s=secs,
-                one_card_s=one_s, loss=loss, one_card_loss=one_loss,
-                loss_rel_err=loss_rel, loss_bit_equal=loss == one_loss,
-                loss_gate=loss_gate, grad_norm=float(metrics["grad_norm"]),
-                one_card_grad_norm=float(want_m["grad_norm"]),
-                tensors=len(errs), max_grad_rel_err=worst[0][1],
-                worst=dict(worst[:4]),
-                median_grad_rel_err=statistics.median(errs.values()),
-                worst_alone=dict(sorted(alone.items(),
-                                        key=lambda kv: -kv[1])[:4]),
-                grad_gate=GRAD_REL_TOL, launches=counts,
-                expected_launches=expected,
-                peak_gib=[p[0] for p in peaks],
-                one_card_peak_gib=[p[1] for p in peaks], weights=weights,
-                sharded_tensors=len(dims), ok=bool(ok))
-            if args.profile:
-                from moviigen_tpu_torch.utils.profiling import trace
-
-                with trace(out.parent / "profile"
-                           / f"{run}_{mode}_rank{rank}", device) as tr:
-                    step(batch, noise=noise, u=u)
-                cards.write_profile(out.parent, f"{run}_{mode}", rank,
-                                    cards.profile_summary(tr, cfg.num_layers))
-                dist.barrier()
-                if rank == 0:
-                    record["profile"] = cards.read_profiles(
-                        out.parent, f"{run}_{mode}", world)
-            if rank == 0:
-                with open(out, "a") as fh:
-                    fh.write(json.dumps(record) + "\n")
-            if not ok:
-                raise RuntimeError(f"{run} {mode}: gate failed: {record}")
-            del m, cap, step, metrics
-            _free(device)
-        del model, one, one_step, want, want_m
-        _free(device)
+            mesh = make_mesh(data=1, ring=ring, seq=seq)
+            streams = cards.comm_streams(mesh, device, out.parent, rank) \
+                if args.profile and cuda else None
+            _library_run(args, ref, mode, ring, seq, mesh, streams, device,
+                         out)
+            cards.free(device)
+        del model, one, one_step, want, want_m, ref
+        cards.free(device)
     dist.barrier()
     dist.destroy_process_group()
-
-
-def _free(device):
-    import gc
-
-    import torch
-
-    gc.collect()
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- the tool
@@ -572,7 +603,8 @@ def run_library(args, runs):
     argv = ["--library", "--task", args.task, "--big_task", args.big_task,
             "--device", args.device, "--ranks", args.ranks, "--runs",
             ",".join(runs), "--latent", args.latent, "--t2_layers",
-            args.t2_layers, "--seed", args.seed] \
+            args.t2_layers, "--seed", args.seed,
+            "--timed_steps", args.timed_steps] \
         + (["--profile"] if args.profile else [])
     cards.launch(pathlib.Path(__file__).resolve(), argv, args.ranks,
                  OUT / "library.log", args.timeout,
@@ -601,6 +633,9 @@ def _parser():
     ap.add_argument("--profile", action="store_true",
                     help="T2, T3: trace one more step of each mode on "
                          "every rank; records gain 'profile'")
+    ap.add_argument("--timed_steps", type=int, default=1,
+                    help="T2, T3: SP steps timed after the warm-up (the "
+                         "record's s is their median)")
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a launch may take")
     return ap
